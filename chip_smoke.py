@@ -35,9 +35,35 @@ non-zero, and only a run that passes them all prints the last line:
    first step's loss and the gradients of the sweep MLP, the first
    matching conv and a decoder head compared; then one step from a
    perturbed init (`spread_outputs_`), held to the spread that moving
-   the input images by one float32 ulp causes on each device.
+   the input images by one float32 ulp causes on each device;
+9. the dot-product sweep kernel (K1-dot) against its plain version at the
+   small odd shape and hero b=1 in float32 (TF32 off) and bf16, and at
+   hero b=8 and b=16 in bf16, bf16 also against the plain version on the
+   unrounded float32 features; CUDA-event times of both, of the plain
+   dot backward at b=16, and the bound;
+10. the stem pool kernels (K3-fwd, K3-bwd) against the plain chain and
+   its autograd at an odd shape and the encoder's shapes at b=1 and b=16,
+   in float32 and in the dtype the bf16 encoder hands the pool, on
+   ReLU'd inputs with ties: values, identical gradient routing, times and
+   bounds;
+11. the dot-product model (bf16, `matching_pool_impl="pallas"`,
+   `fast_cost_volume=True`) through `OnlineSession` over the 12-frame
+   stream: outputs finite and of the right shapes, K1-dot and K3-fwd
+   launched once per answered frame, K1, K2 and K3-bwd never; latency,
+   then the hero and the dot model again in turns, and a profiled stream
+   of each (device busy time, kernels and top host ops per request);
+12. dot-product training, b16 bf16, one fixed batch, 3 warm-up and 5
+   timed steps: finite losses and gradient norms, every parameter
+   changed, K1-dot, K3-fwd and K3-bwd once a step, K1 and K2 never;
+   median step time, peak memory and a profiler split of device time
+   that names the plain dot backward's share;
+13. the card against the CPU in float32 at 192x256 (dot widths): the
+   forward as in phase 5, and the first training step's loss, gradient
+   norm and gradients of the first matching conv and a decoder head as
+   in phase 8.
 
-The line before the last is the kernel report as JSON; the last line is
+The line before the last is the kernel report as JSON (five kernels, at
+the shapes their training path gives them); the last line is
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
 
@@ -57,13 +83,16 @@ if not torch.cuda.is_available():
 # the port is imported only once a card is known to be there
 from simplerecon_tpu_torch.models.depth_model import \
     build_depth_model  # noqa: E402
+from simplerecon_tpu_torch.models.matching_encoder import \
+    ResnetMatchingEncoder  # noqa: E402
 from simplerecon_tpu_torch.online import \
     OnlineSession, make_batch  # noqa: E402
-from simplerecon_tpu_torch.ops import _build, cuda_cv  # noqa: E402
+from simplerecon_tpu_torch.ops import _build, cuda_cv, pool  # noqa: E402
 from simplerecon_tpu_torch.parallel import train  # noqa: E402
 from simplerecon_tpu_torch.testing import (  # noqa: E402
-    hero_options, posed_stream, relative_errors, spread_outputs_,
-    sweep_case, sweep_cotangent, train_batch)
+    dot_case, dot_options, hero_options, pool_case, pool_cotangent,
+    posed_stream, relative_errors, spread_outputs_, sweep_case,
+    sweep_cotangent, train_batch)
 
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # K1 in bf16 against the float32 plain version, relative L2: bf16 rounds
@@ -97,10 +126,47 @@ ULP_FACTOR = 2.0
 TRAIN_STEPS, WARMUP_STEPS, TRAIN_BATCH = 8, 3, 16
 CHECK_STEPS, CHECK_BATCH = 6, 2
 HERO_SWEEP = (7, 96, 128, 16, 64)   # k, h, w, c, d of the hero sweep
+STEM = (64, 192, 256)               # c, h, w at the stem pool, per view
+HERO_COMPARED = ("cost_volume.mlp.net.0.weight",
+                 "matching_model.net.0.weight",
+                 "depth_decoder.convs.output_0.1.weight")
+DOT_COMPARED = HERO_COMPARED[1:]
+# K1-dot against its plain version: neither rounds inside (both sample
+# the compute-dtype maps in float32 and dot in float32), so the same
+# tolerance holds in both dtypes; bf16 against the plain version on the
+# unrounded float32 features, relative L2: the features' one rounding
+# (2^-9 relative)
+DOT_TOL = 1e-4
+DOT_BF16_L2_TOL = 2e-2
+# K3 (tests/test_torch_port_gpu.py gives the reasons): float32 max
+# |kernel - plain| <= POOL_TOL * max(1, max |plain|); bf16 elementwise
+# within POOL_BF16_REL of the float32 chain on the same values
+POOL_TOL = 1e-5
+POOL_BF16_REL = 2.0 ** -8
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores, float32
 # CUDA cores, HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+# each wrapper's launch counter, by the kernel's name in PERF.md
+COUNTERS = {"K1": cuda_cv.fused_sweep, "K2": cuda_cv.fused_sweep_bwd,
+            "K1-dot": cuda_cv.dot_sweep, "K3-fwd": pool.max_blur_pool,
+            "K3-bwd": pool.max_blur_pool_bwd}
+
+
+def reset_launches():
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def launches() -> dict:
+    return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+def assert_launches(counts: dict, expected: dict):
+    """Every kernel named in `expected` launched that often; every other
+    kernel never."""
+    want = {name: expected.get(name, 0) for name in COUNTERS}
+    assert counts == want, (counts, want)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -132,8 +198,9 @@ def phase_card():
 def phase_build():
     lib, seconds = _build.build()
     cuda_cv_lib = _build.load_library()
-    assert cuda_cv_lib.fused_sweep_mlp is not None
-    assert cuda_cv_lib.fused_sweep_mlp_bwd is not None
+    for entry in ("fused_sweep_mlp", "fused_sweep_mlp_bwd", "fused_sweep_dot",
+                  "max_blur_pool_fwd", "max_blur_pool_bwd"):
+        assert getattr(cuda_cv_lib, entry) is not None, entry
     print(f"[build] {lib.name}: nvcc {seconds:.2f} s")
     ptxas = lib.with_suffix(".ptxas.txt")
     if ptxas.exists():
@@ -190,28 +257,9 @@ def phase_kernel(device) -> dict:
     return report
 
 
-def phase_hero(device) -> int:
-    opts = hero_options()
-    model = build_depth_model(opts, device=device, seed=0)
-    assert model.compute_dtype == torch.bfloat16
-    session = OnlineSession(opts, model)
-    frames = posed_stream(12, opts.image_height, opts.image_width, seed=2)
-
-    cuda_cv.fused_sweep.launches = 0
-    cuda_cv.fused_sweep_bwd.launches = 0
-    latencies, answers = [], []
-    for frame in frames:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = session.process_frame(frame)
-        if out is not None:
-            latencies.append((time.perf_counter() - t0) * 1e3)
-            answers.append(out)
-    launches = cuda_cv.fused_sweep.launches
-
-    assert len(answers) >= 3, len(answers)
-    assert launches == len(answers), (launches, len(answers))
-    assert cuda_cv.fused_sweep_bwd.launches == 0
+def check_answers(answers, opts):
+    """Every answer's depth maps finite and of the right shapes, with the
+    lowest-cost depth and the boolean source mask at 1/4 resolution."""
     h, w = opts.image_height, opts.image_width
     for out in answers:
         for i in range(4):
@@ -221,26 +269,56 @@ def phase_hero(device) -> int:
         assert out["lowest_cost_bhw"].shape == (1, h // 4, w // 4)
         assert out["overall_mask_bhw"].shape == (1, h // 4, w // 4)
         assert out["overall_mask_bhw"].dtype == bool
-    print(f"[hero] {len(frames)} frames, {len(answers)} answered, "
-          f"kernel launches {launches}; request latency ms "
+
+
+def serve(opts, model, tag: str) -> tuple:
+    """The 12-frame posed stream through `OnlineSession`, with the launch
+    counters set to 0 just before: (answers, per-request ms, launches)."""
+    session = OnlineSession(opts, model)
+    frames = posed_stream(12, opts.image_height, opts.image_width, seed=2)
+    reset_launches()
+    latencies, answers = [], []
+    for frame in frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = session.process_frame(frame)
+        if out is not None:
+            latencies.append((time.perf_counter() - t0) * 1e3)
+            answers.append(out)
+    counts = launches()
+    assert len(answers) >= 3, len(answers)
+    check_answers(answers, opts)
+    print(f"[{tag}] {len(frames)} frames, {len(answers)} answered, "
+          f"kernel launches {counts}; request latency ms "
           f"median {statistics.median(latencies):.2f} "
           f"(first {latencies[0]:.2f}, all "
           f"{', '.join(f'{x:.2f}' for x in latencies)}); "
           f"overall_mask mean {answers[-1]['overall_mask_bhw'].mean():.3f}")
-    return launches
+    return answers, latencies, counts
 
 
-def phase_card_vs_cpu(device):
+def phase_hero(device) -> int:
+    opts = hero_options()
+    model = build_depth_model(opts, device=device, seed=0)
+    assert model.compute_dtype == torch.bfloat16
+    answers, _, counts = serve(opts, model, "hero")
+    assert_launches(counts, {"K1": len(answers)})
+    return counts["K1"]
+
+
+def phase_card_vs_cpu(device, opts, tag: str):
+    """The model of `opts` (float32, reduced size) on the card and on the
+    CPU, same weights and frames: volume and log-depth maps within 2% of
+    the CPU map's std."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    opts = hero_options(image_height=192, image_width=256, precision="32")
     cpu_model = spread_outputs_(build_depth_model(opts, device="cpu", seed=5),
                                 seed=5)
     gpu_model = build_depth_model(opts, device=device, seed=5)
     gpu_model.load_state_dict(cpu_model.state_dict())
     frames = posed_stream(8, opts.image_height, opts.image_width, seed=3)
     results = {}
-    for tag, model in (("cpu", cpu_model), ("gpu", gpu_model)):
+    for dev_tag, model in (("cpu", cpu_model), ("gpu", gpu_model)):
         cur, src = make_batch(frames[7], frames[:7], opts.matching_scale,
                               next(model.parameters()).device)
         captured = {}
@@ -252,20 +330,20 @@ def phase_card_vs_cpu(device):
         out = {k: v.cpu() for k, v in out.items()}
         out["cost_volume_bhwd"] = captured["volume"].cpu()
         hook.remove()
-        print(f"[card_vs_cpu] {tag} forward {time.perf_counter() - t0:.2f} s")
-        results[tag] = out
+        print(f"[{tag}] {dev_tag} forward {time.perf_counter() - t0:.2f} s")
+        results[dev_tag] = out
     for key in ["cost_volume_bhwd"] + [f"log_depth_pred_s{i}_bhw1"
                                        for i in range(4)]:
         ref, got = results["cpu"][key], results["gpu"][key]
         std = ref.std().item()
         err = (got - ref).abs().max().item()
-        print(f"[card_vs_cpu] {key}: max_abs_err {err:.3e} std {std:.3e} "
+        print(f"[{tag}] {key}: max_abs_err {err:.3e} std {std:.3e} "
               f"ratio {err / std:.2e}")
         assert std >= MIN_STD, (key, std)
         assert err <= SIGNAL_FRACTION * std, (key, err, std)
     agree = (results["cpu"]["overall_mask_bhw"]
              == results["gpu"]["overall_mask_bhw"]).float().mean().item()
-    print(f"[card_vs_cpu] overall_mask agreement {agree:.5f}")
+    print(f"[{tag}] overall_mask agreement {agree:.5f}")
 
 
 def sweep_work(shape, dtype, backward: bool) -> tuple:
@@ -290,13 +368,53 @@ def sweep_work(shape, dtype, backward: bool) -> tuple:
     return bwd * cells, feats + 2 * weights + cells * 4 + grads
 
 
-def bound_ms(shape, dtype, backward: bool) -> tuple:
-    """The least time the card could take for the call, in ms, and what
+def work_bound(flops: float, nbytes: float, peak_flops: float) -> tuple:
+    """The least time the card could take for `flops` operations at
+    `peak_flops` and `nbytes` of device memory traffic, in ms, and what
     bounds it."""
-    flops, nbytes = sweep_work(shape, dtype, backward)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                         else "bytes")
+
+
+def bound_ms(shape, dtype, backward: bool) -> tuple:
+    """K1's (or K2's) bound at `shape`: its MLP runs at the peak of the
+    inputs' type."""
+    return work_bound(*sweep_work(shape, dtype, backward), PEAK_FLOPS[dtype])
+
+
+def dot_sweep_work(shape, dtype) -> tuple:
+    """(operations, bytes, tap bytes) of one K1-dot call at `shape`. The
+    operations are the least the function needs per (view, plane, pixel):
+    the projection (9 FMAs), c dot FMAs for each of the four taps and 4
+    to weight them (mask * sum_t w_t <tap_t, cur>), and about 16 more
+    (divide, tap weights, mask). Bytes: each input read and the float32
+    output written once. Tap bytes: the four taps' c channels a sample,
+    read through L1 and L2."""
+    b, k, h, w, c, d = shape
+    n = h * w
+    esize = torch.tensor([], dtype=dtype).element_size()
+    samples = b * d * n * k
+    nbytes = ((b * k * n * c + b * n * c) * esize + b * d * n * 4
+              + (2 * b * k * 16 + b * 16 + b * d) * 4)
+    return (samples * (2 * (9 + 4 * c + 4) + 16), nbytes,
+            samples * 4 * c * esize)
+
+
+def pool_work(shape, dtype, backward: bool) -> tuple:
+    """(operations, bytes) of one K3 call on an NCHW input of `shape`:
+    three compares per 2x2 window and the 16-tap blur (or its transpose,
+    and one add a routed window) per output; the forward reads x and
+    writes out, the backward reads x and g and writes dx."""
+    b, c, h, w = shape
+    ho, wo = pool.output_size(h, w)
+    planes = b * c
+    windows, outs, ins = (planes * (h - 1) * (w - 1), planes * ho * wo,
+                          planes * h * w)
+    esize = torch.tensor([], dtype=dtype).element_size()
+    if not backward:
+        return windows * 3 + outs * 32, (ins + outs) * esize
+    return windows * 4 + outs * 32, (2 * ins + outs) * esize
 
 
 def phase_backward(device) -> dict:
@@ -358,6 +476,8 @@ def _device_split(prof, steps: int) -> dict:
     """Device (self CUDA) time per step in ms, by kernel family."""
     families = (("K1", ("fused_sweep_mlp_kernel",)),
                 ("K2", ("fused_sweep_bwd_kernel", "sum_partials_kernel")),
+                ("K1-dot", ("fused_sweep_dot_kernel",)),
+                ("K3", ("max_blur_pool",)),
                 ("convolution", ("conv", "cudnn", "dgrad", "wgrad", "fprop",
                                  "winograd", "nchwtonhwc", "nhwctonchw")),
                 ("optimizer", ("multi_tensor", "adam", "foreach")),
@@ -405,43 +525,21 @@ def _series(losses, norms) -> str:
             + ", ".join(f"{x:.3f}" for x in norms))
 
 
-def phase_train(device) -> dict:
-    opts = hero_options()
-    model = build_depth_model(opts, device=device, seed=0)
-    assert model.compute_dtype == torch.bfloat16
-    optimizer = train.make_optimizer(opts, model)
-    batch = train.batch_to_device(train_batch(opts, TRAIN_BATCH, seed=7),
-                                  device)
-    generator = torch.Generator().manual_seed(0)
-    before = [p.detach().clone() for p in model.parameters()]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(device)
+def _range_device_ms(prof, name: str, steps: int) -> float:
+    """Device time per step, in ms, of the kernels launched inside the
+    `record_function` range `name` (its CPU events' device time, which
+    counts the kernels of every op inside)."""
+    total = sum(evt.device_time_total for evt in prof.events()
+                if evt.name == name
+                and evt.device_type == torch.autograd.DeviceType.CPU)
+    return total / 1e3 / steps
 
-    cuda_cv.fused_sweep.launches = 0
-    cuda_cv.fused_sweep_bwd.launches = 0
-    losses, norms, step_ms = _run_steps(model, optimizer, batch, generator,
-                                        TRAIN_STEPS)
-    launches = (cuda_cv.fused_sweep.launches,
-                cuda_cv.fused_sweep_bwd.launches)
-    peak_gib = torch.cuda.max_memory_allocated(device) / 2 ** 30
 
-    assert launches == (TRAIN_STEPS, TRAIN_STEPS), launches
-    assert all(np.isfinite(losses)) and all(np.isfinite(norms)), (losses,
-                                                                  norms)
-    assert optimizer.count == TRAIN_STEPS, optimizer.count
-    assert losses[-1] < losses[0], losses
-    changed = sum(not torch.equal(a, p.detach())
-                  for a, p in zip(before, model.parameters()))
-    assert changed >= 0.95 * len(before), (changed, len(before))
-    timed = step_ms[WARMUP_STEPS:]
-    print(f"[train] hero b{TRAIN_BATCH} bf16, {TRAIN_STEPS} steps at lr "
-          f"{opts.lr:g}: " + _series(losses, norms))
-    print(f"[train] K1 launches {launches[0]}, K2 launches {launches[1]}; "
-          f"step ms median {statistics.median(timed):.2f} over "
-          f"{len(timed)} (all " + ", ".join(f"{x:.2f}" for x in step_ms)
-          + f"); peak memory {peak_gib:.2f} GiB; "
-          f"{changed} of {len(before)} parameter tensors changed")
-
+def profile_steps(model, optimizer, batch, generator, step: float,
+                  tag: str, ranges=()) -> dict:
+    """A `torch.profiler` split of the device time over two more steps,
+    against the unprofiled median `step` (ms); `ranges` names
+    `record_function` ranges whose device time is printed too."""
     steps = 2
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
@@ -454,15 +552,69 @@ def phase_train(device) -> dict:
     wall = (time.perf_counter() - t0) * 1e3 / steps
     split, kernels = _device_split(prof, steps)
     busy = sum(split.values())
-    step = statistics.median(timed)
-    print(f"[train] profile over {steps} steps: device busy {busy:.2f} "
+    print(f"[{tag}] profile over {steps} steps: device busy {busy:.2f} "
           f"ms/step; idle share {1 - busy / step:.3f} of the unprofiled "
           f"median step ({step:.2f} ms); wall {wall:.2f} ms/step with the "
           "profiler on")
-    print("[train] device ms/step by family: " + ", ".join(
+    print(f"[{tag}] device ms/step by family: " + ", ".join(
         f"{name} {t:.2f}" for name, t in split.items()))
-    print("[train] top kernels ms/step: " + "; ".join(
+    for name in ranges:
+        ms = _range_device_ms(prof, name, steps)
+        print(f"[{tag}] device ms/step inside '{name}': {ms:.2f} "
+              f"({ms / max(busy, 1e-9):.3f} of busy)")
+    print(f"[{tag}] top kernels ms/step: " + "; ".join(
         f"{t:.2f} {name[:60]}" for t, name in kernels[:10]))
+    return split
+
+
+def train_steps(opts, device, tag: str) -> tuple:
+    """TRAIN_STEPS training steps at b16 on one fixed seeded batch, with
+    the launch counters set to 0 just before; checks losses and gradient
+    norms finite. Returns (model, optimizer, batch, generator, losses,
+    launches, median timed step ms, parameter tensors changed, their
+    count)."""
+    model = build_depth_model(opts, device=device, seed=0)
+    assert model.compute_dtype == torch.bfloat16
+    optimizer = train.make_optimizer(opts, model)
+    batch = train.batch_to_device(train_batch(opts, TRAIN_BATCH, seed=7),
+                                  device)
+    generator = torch.Generator().manual_seed(0)
+    before = [p.detach().clone() for p in model.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    losses, norms, step_ms = _run_steps(model, optimizer, batch, generator,
+                                        TRAIN_STEPS)
+    counts = launches()
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    assert all(np.isfinite(losses)) and all(np.isfinite(norms)), (losses,
+                                                                  norms)
+    assert optimizer.count == TRAIN_STEPS, optimizer.count
+    unchanged = [name for (name, p), a in zip(model.named_parameters(),
+                                              before)
+                 if torch.equal(a, p.detach())]
+    timed = step_ms[WARMUP_STEPS:]
+    step = statistics.median(timed)
+    print(f"[{tag}] b{TRAIN_BATCH} bf16, {TRAIN_STEPS} steps at lr "
+          f"{opts.lr:g}: " + _series(losses, norms))
+    print(f"[{tag}] launches {counts}; step ms median {step:.2f} over "
+          f"{len(timed)} (all " + ", ".join(f"{x:.2f}" for x in step_ms)
+          + f"); peak memory {peak_gib:.2f} GiB; "
+          f"{len(before) - len(unchanged)} of {len(before)} parameter "
+          f"tensors changed" + (f" (unchanged: {unchanged})" if unchanged
+                                else ""))
+    return (model, optimizer, batch, generator, losses, counts, step,
+            len(before) - len(unchanged), len(before))
+
+
+def phase_train(device) -> dict:
+    opts = hero_options()
+    (model, optimizer, batch, generator, losses, counts, step, changed,
+     total) = train_steps(opts, device, "train")
+    assert_launches(counts, {"K1": TRAIN_STEPS, "K2": TRAIN_STEPS})
+    assert losses[-1] < losses[0], losses
+    assert changed >= 0.95 * total, (changed, total)
+    profile_steps(model, optimizer, batch, generator, step, "train")
 
     # the same steps from the same init at a tenth of the learning rate
     del model, optimizer
@@ -474,7 +626,19 @@ def phase_train(device) -> dict:
     assert all(np.isfinite(slow_losses)), slow_losses
     print(f"[train] the same at lr {slow.lr:g}: "
           + _series(slow_losses, slow_norms))
-    return dict(launches=launches, step_ms=step)
+    return dict(launches=counts, step_ms=step)
+
+
+def phase_dot_train(device) -> dict:
+    (model, optimizer, batch, generator, _, counts, step, changed,
+     total) = train_steps(dot_options(), device, "dot_train")
+    assert type(model.cost_volume).__name__ == "DotProductCostVolume"
+    assert_launches(counts, {"K1-dot": TRAIN_STEPS, "K3-fwd": TRAIN_STEPS,
+                             "K3-bwd": TRAIN_STEPS})
+    assert changed == total, (changed, total)
+    profile_steps(model, optimizer, batch, generator, step, "dot_train",
+                  ranges=("dot_sweep_backward",))
+    return dict(launches=counts, step_ms=step)
 
 
 def _rel(got, want) -> float:
@@ -492,18 +656,21 @@ def _one_step_grads(model, batch, device, names) -> tuple:
     return losses["loss"].item(), {n: params[n].grad.cpu() for n in names}
 
 
-def phase_train_card_vs_cpu(device):
+def phase_train_card_vs_cpu(device, opts, compared, steps: int, tag: str,
+                            perturbed: bool):
+    """`steps` float32 training steps of the model of `opts` on the card
+    and on the CPU from the same init, batch and flip coins: the first
+    step's loss, grad norm and `compared` gradients, and the second
+    step's loss if there is one, held tight; with `perturbed`, one step
+    from a perturbed init held to the one-ulp input spread."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    opts = hero_options(image_height=192, image_width=256, precision="32")
-    compared = ("cost_volume.mlp.net.0.weight", "matching_model.net.0.weight",
-                "depth_decoder.convs.output_0.1.weight")
 
     # training steps from the plain seeded init, the same flip coins
     base = build_depth_model(opts, device="cpu", seed=9)
     batch = train_batch(opts, CHECK_BATCH, seed=8)
     runs = {}
-    for tag, dev in (("cpu", "cpu"), ("gpu", device)):
+    for dev_tag, dev in (("cpu", "cpu"), ("gpu", device)):
         model = copy.deepcopy(base).to(dev)
         optimizer = train.make_optimizer(opts, model)
         data = train.batch_to_device(batch, dev)
@@ -512,24 +679,28 @@ def phase_train_card_vs_cpu(device):
                                             generator, 1)
         params = dict(model.named_parameters())
         grads = {name: params[name].grad.cpu() for name in compared}
-        rest = _run_steps(model, optimizer, data, generator, CHECK_STEPS - 1)
+        rest = _run_steps(model, optimizer, data, generator, steps - 1)
         losses, norms = losses + rest[0], norms + rest[1]
-        print(f"[train_card_vs_cpu] {tag} b{CHECK_BATCH}, {CHECK_STEPS} "
+        print(f"[{tag}] {dev_tag} b{CHECK_BATCH}, {steps} "
               f"steps in {(sum(step_ms) + sum(rest[2])) / 1e3:.2f} s: "
               + _series(losses, norms))
         assert all(np.isfinite(losses)) and all(np.isfinite(norms))
-        runs[tag] = (losses, norms, grads)
+        runs[dev_tag] = (losses, norms, grads)
     (l_cpu, n_cpu, g_cpu), (l_gpu, n_gpu, g_gpu) = runs["cpu"], runs["gpu"]
-    for got, want, rtol in ((l_gpu[0], l_cpu[0], TRAIN_LOSS_RTOL),
-                            (n_gpu[0], n_cpu[0], TRAIN_NORM_RTOL),
-                            (l_gpu[1], l_cpu[1], TRAIN_LOSS2_RTOL)):
+    held = [(l_gpu[0], l_cpu[0], TRAIN_LOSS_RTOL),
+            (n_gpu[0], n_cpu[0], TRAIN_NORM_RTOL)]
+    if steps > 1:
+        held.append((l_gpu[1], l_cpu[1], TRAIN_LOSS2_RTOL))
+    for got, want, rtol in held:
         assert abs(got - want) <= rtol * abs(want), (got, want, rtol)
     for name in compared:
         rel = _rel(g_gpu[name], g_cpu[name])
-        print(f"[train_card_vs_cpu] first step {name}: L2-rel {rel:.2e} "
+        print(f"[{tag}] first step {name}: L2-rel {rel:.2e} "
               f"(|grad| {g_cpu[name].norm().item():.3e})")
         assert g_cpu[name].norm() > 0 and rel <= TRAIN_GRAD_TOL, (name, rel)
 
+    if not perturbed:
+        return
     # one step from a perturbed init, against the spread of one ulp
     spread = spread_outputs_(build_depth_model(opts, device="cpu", seed=9),
                              seed=9)
@@ -538,14 +709,14 @@ def phase_train_card_vs_cpu(device):
     for part in moved.values():
         part["image_b3hw"] = (part["image_b3hw"]
                               * np.float32(1 + 2 ** -23)).astype(np.float32)
-    res = {tag: _one_step_grads(copy.deepcopy(spread).to(dev), data, dev,
+    res = {key: _one_step_grads(copy.deepcopy(spread).to(dev), data, dev,
                                 compared)
-           for tag, dev, data in (("cpu", "cpu", one),
+           for key, dev, data in (("cpu", "cpu", one),
                                   ("cpu_ulp", "cpu", moved),
                                   ("gpu", device, one),
                                   ("gpu_ulp", device, moved))}
-    print("[train_card_vs_cpu] perturbed init, loss " + ", ".join(
-        f"{tag} {loss:.6f}" for tag, (loss, _) in res.items()))
+    print(f"[{tag}] perturbed init, loss " + ", ".join(
+        f"{key} {loss:.6f}" for key, (loss, _) in res.items()))
     assert abs(res["gpu"][0] - res["cpu"][0]) <= (TRAIN_LOSS_RTOL
                                                   * abs(res["cpu"][0]))
     for name in compared:
@@ -553,17 +724,238 @@ def phase_train_card_vs_cpu(device):
         ulps = [_rel(res[f"{dev}_ulp"][1][name], res[dev][1][name])
                 for dev in ("cpu", "gpu")]
         limit = max(TRAIN_GRAD_TOL, ULP_FACTOR * max(ulps))
-        print(f"[train_card_vs_cpu] perturbed init {name}: card vs CPU "
+        print(f"[{tag}] perturbed init {name}: card vs CPU "
               f"L2-rel {card:.2e}; one-ulp spread CPU {ulps[0]:.2e}, card "
               f"{ulps[1]:.2e} (limit {limit:.2e})")
         assert card <= limit, (name, card, limit)
 
 
-def kernel_entry(name, source, replaces, launches, measured, shape,
-                 backward) -> dict:
-    bound, bound_by = bound_ms(shape, torch.bfloat16, backward)
+def phase_dot_kernel(device) -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = {}
+    fp32_bf16 = (torch.float32, torch.bfloat16)
+    for name, shape, dtypes in (
+            ("odd", (2, 3, 13, 21, 16, 5), fp32_bf16),
+            ("hero_b1", (1,) + HERO_SWEEP, fp32_bf16),
+            ("hero_b8", (8,) + HERO_SWEEP, (torch.bfloat16,)),
+            (f"hero_b{TRAIN_BATCH}", (TRAIN_BATCH,) + HERO_SWEEP,
+             (torch.bfloat16,))):
+        for dtype in dtypes:
+            args = dot_case(*shape, dtype=dtype, device=device, seed=1)
+            before = cuda_cv.dot_sweep.launches
+            got = cuda_cv.dot_sweep(*args)
+            want = cuda_cv.dot_sweep_reference(*args)
+            torch.cuda.synchronize()
+            assert cuda_cv.dot_sweep.launches == before + 1
+            b, k, h, w, c, d = shape
+            assert got.shape == (b, d, h * w), got.shape
+            assert torch.isfinite(got).all()
+            err = (got - want).abs().max().item()
+            tol = DOT_TOL * max(1.0, want.abs().max().item())
+            ms = cuda_ms(lambda: cuda_cv.dot_sweep(*args), reps=20)
+            plain_ms = cuda_ms(lambda: cuda_cv.dot_sweep_reference(*args),
+                               reps=5)
+            flops, nbytes, tap_bytes = dot_sweep_work(shape, dtype)
+            bound, bound_by = work_bound(flops, nbytes,
+                                         PEAK_FLOPS[torch.float32])
+            tag = f"{name}_{str(dtype).split('.')[-1]}"
+            print(f"[dot_kernel] {tag}: shape {shape} max_abs_err {err:.3e} "
+                  f"(tol {tol:.1e}) kernel {ms:.3f} ms plain {plain_ms:.3f} "
+                  f"ms; bound {bound:.4f} ms by {bound_by} "
+                  f"({flops / 1e9:.2f} GFLOP on float32 CUDA cores, "
+                  f"{nbytes / 1e6:.1f} MB; tap loads {tap_bytes / 1e9:.2f} "
+                  "GB through L1/L2)")
+            assert err <= tol, (tag, err, tol)
+            entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound=(bound, bound_by))
+            if dtype == torch.bfloat16:
+                unrounded = dot_case(*shape, dtype=torch.float32,
+                                     device=device, seed=1)
+                want = cuda_cv.dot_sweep_reference(*unrounded)
+                rel = ((got - want).norm() / want.norm()).item()
+                print(f"[dot_kernel] {tag} vs float32 plain on unrounded "
+                      f"features: L2-rel {rel:.2e} "
+                      f"(tol {DOT_BF16_L2_TOL:.0e})")
+                assert rel <= DOT_BF16_L2_TOL, (tag, rel)
+            if name == f"hero_b{TRAIN_BATCH}":
+                g = sweep_cotangent(b, d, h * w, device, seed=2)
+                bwd_ms = cuda_ms(lambda: cuda_cv.dot_sweep_backward(*args, g),
+                                 reps=3, warmup=1)
+                print(f"[dot_kernel] {tag}: plain dot backward {bwd_ms:.3f} "
+                      "ms")
+            report[tag] = entry
+    return report
+
+
+def encoder_pool_dtype(device) -> torch.dtype:
+    """The dtype the bf16 (autocast) matching encoder hands its stem
+    pool, in train mode."""
+    encoder = ResnetMatchingEncoder(pool_impl="pallas").to(device).train()
+    seen = []
+    hook = encoder.net[3].register_forward_hook(
+        lambda mod, args, out: seen.append((args[0].dtype, out.dtype)))
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        encoder(torch.randn(2, 3, 64, 64, device=device))
+    hook.remove()
+    print(f"[pool_kernel] under bf16 autocast the stem pool takes "
+          f"{seen[0][0]} and gives {seen[0][1]}")
+    return seen[0][0]
+
+
+def phase_pool_kernels(device) -> tuple:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cdt = encoder_pool_dtype(device)
+    dtypes = (torch.float32,) if cdt == torch.float32 else (torch.float32,
+                                                            cdt)
+    report = {}
+    for name, shape in (("odd", (2, 3, 13, 22)),
+                        ("encoder_b1", (8,) + STEM),
+                        (f"encoder_b{TRAIN_BATCH}",
+                         (8 * TRAIN_BATCH,) + STEM)):
+        b, c, h, w = shape
+        for dtype in dtypes:
+            x = pool_case(shape, dtype, device, seed=3)
+            g = pool_cotangent((b, c) + pool.output_size(h, w), dtype, device,
+                               seed=4, positive=True)
+            before = (pool.max_blur_pool.launches,
+                      pool.max_blur_pool_bwd.launches)
+            out = pool.max_blur_pool(x)
+            dx = pool.max_blur_pool_bwd(x, g)
+            torch.cuda.synchronize()
+            assert (pool.max_blur_pool.launches,
+                    pool.max_blur_pool_bwd.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+            want = pool.max_blur_pool_reference(x.float())
+            want_dx = pool.max_blur_pool_backward_reference(x.float(),
+                                                            g.float())
+            tag = f"{name}_{str(dtype).split('.')[-1]}"
+            entry = {}
+            xr = x.detach().requires_grad_()
+            graph = pool.max_blur_pool_reference(xr)
+            timings = {
+                "fwd": (lambda: pool.max_blur_pool(x),
+                        lambda: pool.max_blur_pool_reference(x)),
+                "bwd": (lambda: pool.max_blur_pool_bwd(x, g),
+                        lambda: torch.autograd.grad(graph, xr, g,
+                                                    retain_graph=True))}
+            for part, got, ref in (("fwd", out, want), ("bwd", dx, want_dx)):
+                assert got.shape == ref.shape and got.dtype == dtype
+                assert torch.isfinite(got).all()
+                diff = (got.float() - ref).abs()
+                err = diff.max().item()
+                if dtype == torch.float32:
+                    limit = POOL_TOL * max(1.0, ref.abs().max().item())
+                    ok = err <= limit
+                    rule = f"max <= {limit:.1e}"
+                else:
+                    ratio = (diff / (ref.abs() + 1e-30)).max().item()
+                    ok = bool((diff <= POOL_BF16_REL * ref.abs() + 1e-6)
+                              .all())
+                    rule = (f"elementwise <= 2^-8 |ref|, worst "
+                            f"{ratio:.2e} |ref|")
+                kernel_fn, plain_fn = timings[part]
+                ms = cuda_ms(kernel_fn, reps=20)
+                plain_ms = cuda_ms(plain_fn, reps=20)
+                bound, bound_by = work_bound(
+                    *pool_work(shape, dtype, part == "bwd"),
+                    PEAK_FLOPS[torch.float32])
+                print(f"[pool_kernel] {tag} {part}: shape {shape} "
+                      f"max_abs_err {err:.3e} vs the float32 chain ({rule}); "
+                      f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms; bound "
+                      f"{bound:.4f} ms by {bound_by}")
+                assert ok, (tag, part, err)
+                entry[part] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                   bound=(bound, bound_by))
+            routed = dx != 0
+            assert torch.equal(routed, want_dx != 0), tag
+            if dtype != torch.float32:
+                same = (pool.max_blur_pool_backward_reference(x, g).float()
+                        - dx.float()).abs().max().item()
+                fwd_same = (pool.max_blur_pool_reference(x).float()
+                            - out.float()).abs().max().item()
+                print(f"[pool_kernel] {tag}: against the {dtype} plain chain "
+                      f"max |diff| fwd {fwd_same:.3e} bwd {same:.3e}")
+            print(f"[pool_kernel] {tag}: dx routed to the same "
+                  f"{routed.float().mean().item():.4f} of the elements as "
+                  "the plain autograd")
+            report[tag] = entry
+            del x, g, out, dx, want, want_dx, xr, graph
+    return report, cdt
+
+
+def profile_requests(opts, model, tag: str):
+    """A `torch.profiler` view of the 12-frame stream through a fresh
+    `OnlineSession`: device busy time and kernels per answered request,
+    and the host ops that take the most CPU time."""
+    session = OnlineSession(opts, model)
+    frames = posed_stream(12, opts.image_height, opts.image_width, seed=2)
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    answered = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=activities) as prof:
+        for frame in frames:
+            answered += session.process_frame(frame) is not None
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / answered
+    events = [e for e in prof.key_averages()
+              if not getattr(e, "is_user_annotation", False)]
+    cuda = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "#" not in e.key]
+    busy = sum(getattr(e, "self_device_time_total", 0.0) for e in cuda)
+    kernels = sum(e.count for e in cuda)
+    host = sorted(((e.self_cpu_time_total, e.count, e.key) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  reverse=True)
+    print(f"[{tag}] profiled stream: {answered} answers, device busy "
+          f"{busy / 1e3 / answered:.2f} ms and {kernels / answered:.0f} "
+          f"kernels per answer; wall {wall:.2f} ms per answer with the "
+          "profiler on")
+    print(f"[{tag}] host ops by self CPU ms per answer: " + "; ".join(
+        f"{t / 1e3 / answered:.2f} {key} (x{count / answered:.0f})"
+        for t, count, key in host[:10]))
+
+
+def phase_dot_infer(device) -> dict:
+    """The dot model through `OnlineSession`, then the hero and the dot
+    model again in turns on the same card state, and a profiled stream
+    of each: the two request latencies compared."""
+    torch.cuda.empty_cache()    # the pool phase's tensors leave the cache
+    opts = dot_options(fast_cost_volume=True)
+    model = build_depth_model(opts, device=device, seed=0)
+    assert model.compute_dtype == torch.bfloat16
+    assert type(model.cost_volume).__name__ == "DotProductCostVolume"
+    assert model.matching_model.net[3].impl == "pallas"
+    answers, dot_ms, counts = serve(opts, model, "dot_infer")
+    assert_launches(counts, {"K1-dot": len(answers),
+                             "K3-fwd": len(answers)})
+
+    hero_opts = hero_options()
+    hero = build_depth_model(hero_opts, device=device, seed=0)
+    hero_answers, hero_ms, hero_counts = serve(hero_opts, hero,
+                                               "dot_infer hero")
+    assert_launches(hero_counts, {"K1": len(hero_answers)})
+    again, dot_again_ms, again_counts = serve(opts, model,
+                                              "dot_infer dot again")
+    assert_launches(again_counts, {"K1-dot": len(again),
+                                   "K3-fwd": len(again)})
+    print("[dot_infer] request median ms in turns: dot "
+          f"{statistics.median(dot_ms):.2f}, hero "
+          f"{statistics.median(hero_ms):.2f}, dot "
+          f"{statistics.median(dot_again_ms):.2f}")
+    profile_requests(opts, model, "dot_infer dot")
+    profile_requests(hero_opts, hero, "dot_infer hero")
+    return counts
+
+
+def kernel_entry(name, source, replaces, launches_on_path, measured) -> dict:
+    bound, bound_by = measured["bound"]
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, "launches": launches_on_path,
             "max_abs_err": measured["max_abs_err"], "ms": measured["ms"],
             "plain_ms": measured["plain_ms"], "bound_ms": bound,
             "bound_by": bound_by, "library_ms": None}
@@ -571,32 +963,64 @@ def kernel_entry(name, source, replaces, launches, measured, shape,
 
 def main():
     device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     phase_card()
     phase_build()
     kernel = phase_kernel(device)
-    infer_launches = phase_hero(device)
-    phase_card_vs_cpu(device)
+    hero_infer = phase_hero(device)
+    phase_card_vs_cpu(device, hero_options(image_height=192, image_width=256,
+                                           precision="32"), "card_vs_cpu")
     backward = phase_backward(device)
     trained = phase_train(device)
-    phase_train_card_vs_cpu(device)
+    phase_train_card_vs_cpu(
+        device, hero_options(image_height=192, image_width=256,
+                             precision="32"),
+        HERO_COMPARED, CHECK_STEPS, "train_card_vs_cpu", perturbed=True)
+    dot_kernel = phase_dot_kernel(device)
+    pool_kernel, pool_dtype = phase_pool_kernels(device)
+    dot_infer = phase_dot_infer(device)
+    dot_trained = phase_dot_train(device)
+    dot_small = dot_options(image_height=192, image_width=256, precision="32")
+    phase_card_vs_cpu(device, dot_small, "dot_card_vs_cpu")
+    phase_train_card_vs_cpu(device, dot_small, DOT_COMPARED, 1,
+                            "dot_train_card_vs_cpu", perturbed=False)
     loaded = [m for m in sys.modules if m in ("jax", "flax", "yaml", "PIL")
               or m == "simplerecon_tpu" or m.startswith("simplerecon_tpu.")]
     assert not loaded, f"the port pulled in {loaded}"
 
-    hero = (TRAIN_BATCH,) + HERO_SWEEP   # the training path's shape
-    tag = f"hero_b{TRAIN_BATCH}_bfloat16"
-    k1, k2 = trained["launches"]
-    print(f"[summary] inference path: K1 launches {infer_launches}; "
-          f"training path: K1 {k1}, K2 {k2}")
+    # the training path's shapes: hero b16 for K1 and K2, the dot model's
+    # b16 for K1-dot, and its encoder's b16 stem for K3
+    b16 = f"hero_b{TRAIN_BATCH}_bfloat16"
+    stem = f"encoder_b{TRAIN_BATCH}_{str(pool_dtype).split('.')[-1]}"
+    hero = (TRAIN_BATCH,) + HERO_SWEEP
+    kernel[b16]["bound"] = bound_ms(hero, torch.bfloat16, backward=False)
+    backward[b16]["bound"] = bound_ms(hero, torch.bfloat16, backward=True)
+    hero_k, dot_k = trained["launches"], dot_trained["launches"]
+    print(f"[summary] inference: hero K1 {hero_infer}; dot K1-dot "
+          f"{dot_infer['K1-dot']}, K3-fwd {dot_infer['K3-fwd']}. training "
+          f"steps: hero {hero_k}; dot {dot_k}. run so far "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         kernel_entry("fused_sweep_mlp",
                      "simplerecon_tpu_torch/csrc/fused_sweep.cu",
-                     "simplerecon_tpu/ops/pallas_cv.py:513", k1,
-                     kernel[tag], hero, backward=False),
+                     "simplerecon_tpu/ops/pallas_cv.py:513", hero_k["K1"],
+                     kernel[b16]),
         kernel_entry("fused_sweep_mlp_bwd",
                      "simplerecon_tpu_torch/csrc/fused_sweep_bwd.cu",
-                     "simplerecon_tpu/ops/pallas_cv.py:1047", k2,
-                     backward[tag], hero, backward=True),
+                     "simplerecon_tpu/ops/pallas_cv.py:1047", hero_k["K2"],
+                     backward[b16]),
+        kernel_entry("fused_sweep_dot",
+                     "simplerecon_tpu_torch/csrc/fused_sweep.cu",
+                     "simplerecon_tpu/ops/pallas_cv.py:747", dot_k["K1-dot"],
+                     dot_kernel[b16]),
+        kernel_entry("max_blur_pool_fwd",
+                     "simplerecon_tpu_torch/csrc/max_blur_pool.cu",
+                     "simplerecon_tpu/ops/pallas_pool.py:335",
+                     dot_k["K3-fwd"], pool_kernel[stem]["fwd"]),
+        kernel_entry("max_blur_pool_bwd",
+                     "simplerecon_tpu_torch/csrc/max_blur_pool.cu",
+                     "simplerecon_tpu/ops/pallas_pool.py:281",
+                     dot_k["K3-bwd"], pool_kernel[stem]["bwd"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

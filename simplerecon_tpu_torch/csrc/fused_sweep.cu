@@ -32,9 +32,33 @@
 // w2 (128,1) in the compute dtype T; proj = K @ src_T_cur (b,k,4,4),
 // invK (b,4,4), planes (b,d), pose_meta (b,k,3), src_loc (b,k,3) and the
 // biases in float32. Output (b,d,N) float32.
+//
+// The dot-product sweep (K1-dot, fused_sweep_dot below) is the same
+// kernel's mode "dot" (banded_warp_dot_volume, _banded_kernel's dot
+// branch): per (pixel, plane), the sum over views of mask * <sample, cur>
+// with mask = z + eps > 0. Off-image taps carry zero weight. It has no
+// MLP, so what bounds it on an H100 is the sampling. The least work per
+// (view, plane, pixel) is the projection (9 FMAs), c dot FMAs for each
+// of the four taps and 4 more to weight them (mask * sum_t w_t <tap_t,
+// cur>), and about 16 more operations (divide, tap weights, mask): 170
+// float32 operations at c = 16, 15 GFLOP at hero b16, or 0.22 ms on the
+// CUDA cores; its device memory traffic (source maps, cur and the
+// float32 output, about 101 MB at b16) takes 0.03 ms. This kernel
+// samples first and then dots (5c FMAs), as K1 does. The tap loads,
+// 4 x 32 B a sample in bf16 (11 GB at b16), come from L1 and L2.
+// Design: one thread per (pixel, plane), neighbouring threads on
+// neighbouring pixels (coalesced output, nearby taps), looping over the
+// views; each tap is two (bf16) or four (float32) 16-byte vector loads,
+// and the 16 reference channels stay in registers. The dot model's
+// matching features have c = 16, the only width K1-dot takes (the
+// wrapper raises on others). K1 and K1-dot share the projection and taps
+// (project_taps, bilinear), so they sample identically: features are
+// read in T and sampled and dotted in float32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -59,6 +83,65 @@ __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
 
 __device__ __forceinline__ float leaky_relu(float x) {
   return x > 0.f ? x : 0.01f * x;
+}
+
+// Unnormalised ray invK @ (x + 0.5, y + 0.5, 1) of reference pixel pix.
+__device__ __forceinline__ float3 pixel_ray(const float* ik, int pix, int w) {
+  const float px = (pix % w) + 0.5f;
+  const float py = (pix / w) + 0.5f;
+  return make_float3(ik[0] * px + ik[1] * py + ik[2],
+                     ik[4] * px + ik[5] * py + ik[6],
+                     ik[8] * px + ik[9] * py + ik[10]);
+}
+
+// Projection of one point into one source view and its bilinear taps.
+struct Taps {
+  int pix[4];    // tap pixel indices y * w + x: nw, ne, sw, se (0 outside)
+  float wt[4];   // tap weights (0 outside the image)
+  float z_eps;   // projected depth z + 1e-8
+  float mask;    // z_eps > 0
+};
+
+// Projects the reference-frame point (wx, wy, wz) with P = K @ src_T_cur
+// (row-major 4x4) and the eps-safe divide of ops/geometry.py::
+// project_points, then takes the bilinear taps at index coords
+// (u - 0.5, v - 0.5), zeros outside the image.
+__device__ __forceinline__ Taps project_taps(const float* P, float wx,
+                                             float wy, float wz, int h,
+                                             int w) {
+  Taps t;
+  const float cx = P[0] * wx + P[1] * wy + P[2] * wz + P[3];
+  const float cy = P[4] * wx + P[5] * wy + P[6] * wz + P[7];
+  const float cz = P[8] * wx + P[9] * wy + P[10] * wz + P[11];
+  t.z_eps = cz + 1e-8f;
+  const float scale = fabsf(cz) > 1e-8f ? 1.0f / t.z_eps : 1.0f;
+  const float u = cx * scale, v = cy * scale;
+  t.mask = t.z_eps > 0.f ? 1.f : 0.f;
+
+  const float ix = u - 0.5f, iy = v - 0.5f;
+  const float x0 = floorf(ix), y0 = floorf(iy);
+  const float x1 = x0 + 1.f, y1 = y0 + 1.f;
+  const bool vx0 = x0 >= 0.f && x0 <= w - 1.f;
+  const bool vx1 = x1 >= 0.f && x1 <= w - 1.f;
+  const bool vy0 = y0 >= 0.f && y0 <= h - 1.f;
+  const bool vy1 = y1 >= 0.f && y1 <= h - 1.f;
+  const int xi0 = vx0 ? (int)x0 : 0, xi1 = vx1 ? (int)x1 : 0;
+  const int yi0 = vy0 ? (int)y0 : 0, yi1 = vy1 ? (int)y1 : 0;
+  t.wt[0] = (vx0 && vy0) ? (x1 - ix) * (y1 - iy) : 0.f;
+  t.wt[1] = (vx1 && vy0) ? (ix - x0) * (y1 - iy) : 0.f;
+  t.wt[2] = (vx0 && vy1) ? (x1 - ix) * (iy - y0) : 0.f;
+  t.wt[3] = (vx1 && vy1) ? (ix - x0) * (iy - y0) : 0.f;
+  t.pix[0] = yi0 * w + xi0;
+  t.pix[1] = yi0 * w + xi1;
+  t.pix[2] = yi1 * w + xi0;
+  t.pix[3] = yi1 * w + xi1;
+  return t;
+}
+
+// The float32 sample of one channel from its four tap values.
+__device__ __forceinline__ float bilinear(const Taps& t, float nw, float ne,
+                                          float sw, float se) {
+  return t.wt[0] * nw + t.wt[1] * ne + t.wt[2] * sw + t.wt[3] * se;
 }
 
 // acc[p] += sum_i rows[i][p] * w[i*kHidden + j] for the tile's 64 pixels.
@@ -127,48 +210,25 @@ fused_sweep_mlp_kernel(const T* __restrict__ src, const T* __restrict__ cur,
     const int p = item % kTile;
     const int view = item / kTile;
     const int pix = min(p0 + p, n - 1);  // ragged last tile: not stored
-    const float px = (pix % w) + 0.5f;
-    const float py = (pix / w) + 0.5f;
-    const float rx = ik[0] * px + ik[1] * py + ik[2];
-    const float ry = ik[4] * px + ik[5] * py + ik[6];
-    const float rz = ik[8] * px + ik[9] * py + ik[10];
+    const float3 ray = pixel_ray(ik, pix, w);
+    const float rx = ray.x, ry = ray.y, rz = ray.z;
     const float wx = rx * plane, wy = ry * plane, wz = rz * plane;
+    const Taps t =
+        project_taps(proj + (bi * k + view) * 16, wx, wy, wz, h, w);
+    const float mask = t.mask;
+    const float z_eps = t.z_eps;
 
-    // eps-safe projection (ops/geometry.py::project_points)
-    const float* P = proj + (bi * k + view) * 16;
-    const float cx = P[0] * wx + P[1] * wy + P[2] * wz + P[3];
-    const float cy = P[4] * wx + P[5] * wy + P[6] * wz + P[7];
-    const float cz = P[8] * wx + P[9] * wy + P[10] * wz + P[11];
-    const float z_eps = cz + 1e-8f;
-    const float scale = fabsf(cz) > 1e-8f ? 1.0f / z_eps : 1.0f;
-    const float u = cx * scale, v = cy * scale;
-    const float mask = z_eps > 0.f ? 1.f : 0.f;
-
-    // bilinear taps at index coords (u - 0.5, v - 0.5), zeros outside
-    const float ix = u - 0.5f, iy = v - 0.5f;
-    const float x0 = floorf(ix), y0 = floorf(iy);
-    const float x1 = x0 + 1.f, y1 = y0 + 1.f;
-    const bool vx0 = x0 >= 0.f && x0 <= w - 1.f;
-    const bool vx1 = x1 >= 0.f && x1 <= w - 1.f;
-    const bool vy0 = y0 >= 0.f && y0 <= h - 1.f;
-    const bool vy1 = y1 >= 0.f && y1 <= h - 1.f;
-    const int xi0 = vx0 ? (int)x0 : 0, xi1 = vx1 ? (int)x1 : 0;
-    const int yi0 = vy0 ? (int)y0 : 0, yi1 = vy1 ? (int)y1 : 0;
-    const float w_nw = (vx0 && vy0) ? (x1 - ix) * (y1 - iy) : 0.f;
-    const float w_ne = (vx1 && vy0) ? (ix - x0) * (y1 - iy) : 0.f;
-    const float w_sw = (vx0 && vy1) ? (x1 - ix) * (iy - y0) : 0.f;
-    const float w_se = (vx1 && vy1) ? (ix - x0) * (iy - y0) : 0.f;
     const T* img = src + (size_t)(bi * k + view) * n * c;
-    const T* t_nw = img + (size_t)(yi0 * w + xi0) * c;
-    const T* t_ne = img + (size_t)(yi0 * w + xi1) * c;
-    const T* t_sw = img + (size_t)(yi1 * w + xi0) * c;
-    const T* t_se = img + (size_t)(yi1 * w + xi1) * c;
+    const T* t_nw = img + (size_t)t.pix[0] * c;
+    const T* t_ne = img + (size_t)t.pix[1] * c;
+    const T* t_sw = img + (size_t)t.pix[2] * c;
+    const T* t_se = img + (size_t)t.pix[3] * c;
     const T* cur_p = cur + ((size_t)bi * n + pix) * c;
 
     float dot = 0.f;
     for (int ch = 0; ch < c; ++ch) {
-      const float s = w_nw * to_float(t_nw[ch]) + w_ne * to_float(t_ne[ch]) +
-                      w_sw * to_float(t_sw[ch]) + w_se * to_float(t_se[ch]);
+      const float s = bilinear(t, to_float(t_nw[ch]), to_float(t_ne[ch]),
+                               to_float(t_sw[ch]), to_float(t_se[ch]));
       rows[(view * c + ch) * kRow + p] = round_to<T>(s);
       dot = fmaf(s, to_float(cur_p[ch]), dot);
     }
@@ -198,11 +258,8 @@ fused_sweep_mlp_kernel(const T* __restrict__ src, const T* __restrict__ cur,
     for (int ch = 0; ch < c; ++ch) {
       rows[(k * c + ch) * kRow + p] = to_float(cur_p[ch]);
     }
-    const float px = (pix % w) + 0.5f;
-    const float py = (pix / w) + 0.5f;
-    const float rx = ik[0] * px + ik[1] * py + ik[2];
-    const float ry = ik[4] * px + ik[5] * py + ik[6];
-    const float rz = ik[8] * px + ik[9] * py + ik[10];
+    const float3 ray = pixel_ray(ik, pix, w);
+    const float rx = ray.x, ry = ray.y, rz = ray.z;
     const float ref_inv = 1.0f / sqrtf(rx * rx + ry * ry + rz * rz + 1e-30f);
     rows[(meta + 2 * k) * kRow + p] = round_to<T>(plane);
     rows[(meta + 4 * k + 1) * kRow + p] = round_to<T>(rx * ref_inv);
@@ -267,6 +324,95 @@ int launch(const void* src, const void* cur, const void* proj,
   return (int)cudaGetLastError();
 }
 
+constexpr int kDotThreads = 256;  // pixels per block of the dot sweep
+constexpr int kDotC = 16;         // channel count with vector tap loads
+
+// Loads 16 channels of T from a 16-byte-aligned address as float32.
+__device__ __forceinline__ void load16(const float* p, float (&v)[kDotC]) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+#pragma unroll
+  for (int i = 0; i < kDotC / 4; ++i) {
+    const float4 f = q[i];
+    v[4 * i + 0] = f.x;
+    v[4 * i + 1] = f.y;
+    v[4 * i + 2] = f.z;
+    v[4 * i + 3] = f.w;
+  }
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p,
+                                       float (&v)[kDotC]) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int i = 0; i < kDotC / 8; ++i) {
+    const uint4 u = q[i];
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h[e]);
+      v[8 * i + 2 * e + 0] = f.x;
+      v[8 * i + 2 * e + 1] = f.y;
+    }
+  }
+}
+
+// One thread per (pixel, plane): out = sum over views of
+// mask * <bilinear sample, cur>. c is kDotC: each tap's channels are
+// vector loads from 16-byte-aligned maps.
+template <typename T>
+__global__ void __launch_bounds__(kDotThreads)
+fused_sweep_dot_kernel(const T* __restrict__ src, const T* __restrict__ cur,
+                       const float* __restrict__ proj,
+                       const float* __restrict__ invK,
+                       const float* __restrict__ planes,
+                       float* __restrict__ out, int k, int h, int w, int d) {
+  const int n = h * w;
+  const int pix = blockIdx.x * kDotThreads + threadIdx.x;
+  const int di = blockIdx.y;
+  const int bi = blockIdx.z;
+  if (pix >= n) return;
+  const float plane = planes[bi * d + di];
+  const float3 ray = pixel_ray(invK + bi * 16, pix, w);
+  const float wx = ray.x * plane, wy = ray.y * plane, wz = ray.z * plane;
+
+  float cur_v[kDotC];
+  load16(cur + ((size_t)bi * n + pix) * kDotC, cur_v);
+  float total = 0.f;
+  for (int view = 0; view < k; ++view) {
+    const Taps t =
+        project_taps(proj + (bi * k + view) * 16, wx, wy, wz, h, w);
+    const T* img = src + (size_t)(bi * k + view) * n * kDotC;
+    float nw[kDotC], ne[kDotC], sw[kDotC], se[kDotC];
+    load16(img + (size_t)t.pix[0] * kDotC, nw);
+    load16(img + (size_t)t.pix[1] * kDotC, ne);
+    load16(img + (size_t)t.pix[2] * kDotC, sw);
+    load16(img + (size_t)t.pix[3] * kDotC, se);
+    float dot = 0.f;
+#pragma unroll
+    for (int ch = 0; ch < kDotC; ++ch) {
+      dot = fmaf(bilinear(t, nw[ch], ne[ch], sw[ch], se[ch]), cur_v[ch], dot);
+    }
+    total += dot * t.mask;
+  }
+  out[((size_t)bi * d + di) * n + pix] = total;
+}
+
+template <typename T>
+int launch_dot(const void* src, const void* cur, const void* proj,
+               const void* invK, const void* planes, void* out, int b, int k,
+               int h, int w, int c, int d, cudaStream_t stream) {
+  if (c != kDotC || reinterpret_cast<uintptr_t>(src) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(cur) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((h * w + kDotThreads - 1) / kDotThreads, d, b);
+  fused_sweep_dot_kernel<T><<<grid, kDotThreads, 0, stream>>>(
+      static_cast<const T*>(src), static_cast<const T*>(cur),
+      static_cast<const float*>(proj), static_cast<const float*>(invK),
+      static_cast<const float*>(planes), static_cast<float*>(out), k, h, w,
+      d);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = success).
@@ -287,6 +433,23 @@ extern "C" int fused_sweep_mlp(int dtype, const void* src, const void* cur,
     return launch<__nv_bfloat16>(src, cur, proj, invK, planes, pose_meta,
                                  src_loc, w0, b0, w1, b1, w2, b2, out, b, k,
                                  h, w, c, d, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The dot-product sweep (K1-dot). dtype as above; no MLP arguments.
+extern "C" int fused_sweep_dot(int dtype, const void* src, const void* cur,
+                               const void* proj, const void* invK,
+                               const void* planes, void* out, int b, int k,
+                               int h, int w, int c, int d, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch_dot<float>(src, cur, proj, invK, planes, out, b, k, h, w,
+                             c, d, s);
+  }
+  if (dtype == 1) {
+    return launch_dot<__nv_bfloat16>(src, cur, proj, invK, planes, out, b, k,
+                                     h, w, c, d, s);
   }
   return (int)cudaErrorInvalidValue;
 }

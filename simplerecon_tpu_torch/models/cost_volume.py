@@ -1,13 +1,17 @@
-"""Metadata-MLP feature volume (counterpart of
-`simplerecon_tpu/models/cost_volume.py::MLPFeatureVolume`).
+"""Cost and feature volumes (counterpart of
+`simplerecon_tpu/models/cost_volume.py`).
 
-The volume comes from the differentiable fused sweep
-(`ops/cuda_cv.py::FusedSweep`: the CUDA kernels K1 forward and K2
+`MLPFeatureVolume` (the hero model) comes from the differentiable fused
+sweep (`ops/cuda_cv.py::FusedSweep`: the CUDA kernels K1 forward and K2
 backward on the card, their plain versions on the CPU). The float32 MLP
 weights go in as they are and are cast to the compute dtype inside, so
 their gradients come back in float32. Pose metadata and the
 farthest-plane source mask are plain PyTorch in float32 and get no
 gradient.
+
+`DotProductCostVolume` (the dot-product model) comes from
+`ops/cuda_cv.py::DotSweep`: the CUDA kernel K1-dot forward on the card
+and a plain PyTorch backward.
 """
 
 from __future__ import annotations
@@ -18,8 +22,60 @@ import torch.nn as nn
 from simplerecon_tpu_torch.models.layers import MLP
 from simplerecon_tpu_torch.ops import cost_volume as cv_ops
 from simplerecon_tpu_torch.ops import geometry as geo
-from simplerecon_tpu_torch.ops.cuda_cv import (HIDDEN, FusedSweep,
+from simplerecon_tpu_torch.ops.cuda_cv import (HIDDEN, DotSweep, FusedSweep,
                                                mlp_in_channels)
+
+
+def source_mask(src_feats_bkhwc, extr_bk44, Ks_bk44, invK_b44, planes_bd,
+                h: int, w: int) -> torch.Tensor:
+    """The source-visibility mask (b, h, w) bool: only the farthest plane
+    matters, so it is a one-channel warp of that plane."""
+    warp_last = cv_ops.sweep_warp(src_feats_bkhwc[..., :1], extr_bk44,
+                                  Ks_bk44, invK_b44, planes_bd[:, -1:])
+    return cv_ops.overall_source_mask(warp_last, h, w).reshape(-1, h, w)
+
+
+class DotProductCostVolume(nn.Module):
+    """Per (pixel, plane), the masked dot products of the warped source
+    features with the reference features, summed over source views. No
+    parameters.
+
+    Takes and returns what `MLPFeatureVolume` does (`src_poses_bk44` is
+    not read): volume (b, h, w, d) float32, lowest-cost depth (b, h, w),
+    planes (b, d), overall mask (b, h, w) bool or None.
+    """
+
+    def __init__(self, num_depth_bins: int = 64, min_depth: float = 0.25,
+                 max_depth: float = 5.0,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_depth_bins = num_depth_bins
+        self.min_depth = min_depth
+        self.max_depth = max_depth
+        self.compute_dtype = compute_dtype
+
+    def forward(self, cur_feats_bhwc, src_feats_bkhwc, src_extrinsics_bk44,
+                src_poses_bk44, src_Ks_bk44, cur_invK_b44,
+                return_mask: bool = False):
+        b, h, w, c = cur_feats_bhwc.shape
+        d = self.num_depth_bins
+        cdt = self.compute_dtype
+        f32 = torch.float32
+        planes_bd = cv_ops.generate_depth_planes(
+            b, d, self.min_depth, self.max_depth,
+            device=cur_feats_bhwc.device).contiguous()
+        extr = src_extrinsics_bk44.to(f32).contiguous()
+        Ks = src_Ks_bk44.to(f32).contiguous()
+        invK = cur_invK_b44.to(f32).contiguous()
+        volume_bdN = DotSweep.apply(
+            src_feats_bkhwc.to(cdt).contiguous(),
+            cur_feats_bhwc.reshape(b, h * w, c).to(cdt).contiguous(),
+            extr, Ks, invK, planes_bd)
+        volume_bhwd = volume_bdN.transpose(1, 2).reshape(b, h, w, d)
+        lowest = cv_ops.lowest_cost_depth(volume_bhwd.detach(), planes_bd)
+        overall = (source_mask(src_feats_bkhwc, extr, Ks, invK, planes_bd,
+                               h, w) if return_mask else None)
+        return volume_bhwd, lowest, planes_bd, overall
 
 
 class MLPFeatureVolume(nn.Module):
@@ -76,11 +132,6 @@ class MLPFeatureVolume(nn.Module):
         volume_bhwd = volume_bdN.transpose(1, 2).reshape(b, h, w, d)
         lowest = cv_ops.lowest_cost_depth(volume_bhwd.detach(), planes_bd)
 
-        overall = None
-        if return_mask:
-            # only the farthest plane matters for the source-visibility mask
-            warp_last = cv_ops.sweep_warp(src_feats_bkhwc[..., :1], extr, Ks,
-                                          invK, planes_bd[:, -1:])
-            overall = cv_ops.overall_source_mask(warp_last, h, w
-                                                 ).reshape(b, h, w)
+        overall = (source_mask(src_feats_bkhwc, extr, Ks, invK, planes_bd,
+                               h, w) if return_mask else None)
         return volume_bhwd, lowest, planes_bd, overall

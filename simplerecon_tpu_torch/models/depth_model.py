@@ -1,10 +1,11 @@
 """The SimpleRecon depth model (counterpart of
 `simplerecon_tpu/models/depth_model.py`): EfficientNetV2-S image prior,
-ResNet matching encoder, metadata-MLP feature volume, CV encoder and
+ResNet matching encoder, a metadata-MLP feature volume (the hero model)
+or a dot-product cost volume (the dot-product model), CV encoder and
 UNet++ decoder. The forward serves inference (`model.eval()`, usually
 under `torch.no_grad()`) and training (`model.train()`: batch norms use
 batch statistics and update their running ones; gradients reach every
-parameter through the fused sweep's backward).
+parameter through the sweep's backward).
 
 Parameters stay float32. With `compute_dtype=torch.bfloat16` the
 convolution stacks run under autocast and the feature volume in bf16,
@@ -25,14 +26,17 @@ from typing import Dict
 import torch
 import torch.nn as nn
 
-from simplerecon_tpu_torch.models.cost_volume import MLPFeatureVolume
+from simplerecon_tpu_torch.models.cost_volume import (DotProductCostVolume,
+                                                      MLPFeatureVolume)
 from simplerecon_tpu_torch.models.decoders import CVEncoder, DepthDecoderPP
 from simplerecon_tpu_torch.models.efficientnet import EfficientNetV2Features
 from simplerecon_tpu_torch.models.matching_encoder import \
     ResnetMatchingEncoder
 
 # cost_volume_backend values of the JAX package that all select the port's
-# one sweep path (the fused sweep kernel), and those that wait for a kernel
+# one sweep path of each model (the fused sweep kernel K1 for the hero
+# model, its dot mode K1-dot for the dot-product model), and those that
+# wait for a kernel
 SWEEP_BACKENDS = ("pallas", "pallas_interpret", "xla", "xla_fused")
 UNPORTED_BACKENDS = {
     "pallas_full": "K4 (ROADMAP Queue 2, item 6)",
@@ -53,8 +57,13 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+FEATURE_VOLUME_TYPES = ("mlp_feature_volume", "simple_cost_volume")
+
+
 class DepthModel(nn.Module):
-    """SimpleRecon hero depth network."""
+    """SimpleRecon depth network: the hero model
+    (`feature_volume_type="mlp_feature_volume"`) or the dot-product model
+    ("simple_cost_volume")."""
 
     def __init__(self, matching_scale: int = 1,
                  matching_num_depth_bins: int = 64,
@@ -64,8 +73,12 @@ class DepthModel(nn.Module):
                  matching_norm: str = "batch",
                  matching_pool_impl: str = "reference",
                  model_num_views: int = 8,
+                 feature_volume_type: str = "mlp_feature_volume",
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        if feature_volume_type not in FEATURE_VOLUME_TYPES:
+            raise ValueError(
+                f"unknown feature_volume_type {feature_volume_type!r}")
         if matching_scale != 1:
             raise NotImplementedError("only matching_scale=1 is ported")
         self.matching_scale = matching_scale
@@ -74,12 +87,18 @@ class DepthModel(nn.Module):
         self.matching_model = ResnetMatchingEncoder(
             num_ch_out=matching_feature_dims, norm=matching_norm,
             pool_impl=matching_pool_impl)
-        self.cost_volume = MLPFeatureVolume(
-            num_depth_bins=matching_num_depth_bins,
-            min_depth=min_matching_depth, max_depth=max_matching_depth,
-            matching_dim_size=matching_feature_dims,
-            num_source_views=model_num_views - 1,
-            compute_dtype=compute_dtype)
+        if feature_volume_type == "simple_cost_volume":
+            self.cost_volume = DotProductCostVolume(
+                num_depth_bins=matching_num_depth_bins,
+                min_depth=min_matching_depth, max_depth=max_matching_depth,
+                compute_dtype=compute_dtype)
+        else:
+            self.cost_volume = MLPFeatureVolume(
+                num_depth_bins=matching_num_depth_bins,
+                min_depth=min_matching_depth, max_depth=max_matching_depth,
+                matching_dim_size=matching_feature_dims,
+                num_source_views=model_num_views - 1,
+                compute_dtype=compute_dtype)
         enc_ch = self.encoder.num_ch_enc
         m = matching_scale
         self.cost_volume_net = CVEncoder(
@@ -189,17 +208,12 @@ def build_depth_model(opts, device=None, seed: int = 0) -> DepthModel:
 
     The JAX package's sweep backends `pallas`, `pallas_interpret`, `xla`
     and `xla_fused`, with or without `fast_cost_volume`, all select the
-    port's one path, the fused sweep kernel. `pallas_full` and
-    `pallas_v1` raise until their kernels are ported, as does the
-    dot-product model.
+    port's one path of each model: the fused sweep kernel K1 for the hero
+    model, its dot mode K1-dot for the dot-product model. `pallas_full`
+    and `pallas_v1` raise until their kernels are ported.
     """
     from simplerecon_tpu_torch.utils.weights import init_random_
 
-    if opts.feature_volume_type != "mlp_feature_volume":
-        raise NotImplementedError(
-            f"feature_volume_type={opts.feature_volume_type!r} is not "
-            "ported; the dot-product model waits for K1's dot mode "
-            "(ROADMAP Queue 1, item 11)")
     if opts.matching_encoder_type != "resnet":
         raise NotImplementedError(
             f"matching_encoder_type={opts.matching_encoder_type!r} is not "
@@ -221,6 +235,7 @@ def build_depth_model(opts, device=None, seed: int = 0) -> DepthModel:
         matching_norm=getattr(opts, "matching_norm", "batch"),
         matching_pool_impl=getattr(opts, "matching_pool_impl", "reference"),
         model_num_views=opts.model_num_views,
+        feature_volume_type=opts.feature_volume_type,
         compute_dtype=_compute_dtype(opts))
     init_random_(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -2,7 +2,8 @@
 `simplerecon_tpu/models/matching_encoder.py::ResnetMatchingEncoder`).
 
     net.0 7x7/2 conv -> net.1 BN(eps 1e-5) -> ReLU ->
-    net.3 max-pool 2x2/1 + BlurPool(4-tap, reflect pad (1,2,1,2), stride 2)
+    net.3 max-pool 2x2/1 + BlurPool(4-tap, reflect pad (1,2,1,2), stride 2),
+          or the fused kernel pair K3 with pool_impl="pallas"
     -> net.4 layer1 (two torchvision BasicBlocks) ->
     net.5 1x1 conv(128) -> InstanceNorm -> LeakyReLU(0.2) ->
     net.8 3x3 conv(16, replicate pad) -> InstanceNorm
@@ -20,24 +21,39 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from simplerecon_tpu_torch.models.layers import BatchNorm2d, InstanceNorm32
+from simplerecon_tpu_torch.ops import pool
 
 
 class BlurPool(nn.Module):
     """antialiased_cnns.BlurPool(filt_size=4, stride=2): reflect pad
-    (1, 2, 1, 2), then the depthwise [1,3,3,1] x [1,3,3,1] / 64 filter."""
+    (1, 2, 1, 2), then the depthwise [1,3,3,1] x [1,3,3,1] / 64 filter,
+    kept as the reference state_dict's buffer `filt`."""
 
     def __init__(self, channels: int):
         super().__init__()
-        a = torch.tensor([1.0, 3.0, 3.0, 1.0])
-        filt = a[:, None] * a[None, :]
-        self.register_buffer(
-            "filt", (filt / filt.sum())[None, None].repeat(channels, 1, 1, 1))
-        self.channels = channels
+        self.register_buffer("filt", pool.blur_filter(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.pad(x, (1, 2, 1, 2), mode="reflect")
-        return F.conv2d(x, self.filt.to(x.dtype), stride=2,
-                        groups=self.channels)
+        return pool.blur_pool_reference(x, self.filt)
+
+
+class StemPool(nn.Sequential):
+    """net.3: max-pool 2x2/1 (net.3.0), then BlurPool (net.3.1, whose
+    buffer `filt` the reference state_dict holds as
+    `matching_model.net.3.1.filt`). Both pool forms keep that layout, so
+    a checkpoint loads into either. `impl="pallas"` runs the pair as one
+    fused kernel pair (`ops/pool.py::MaxBlurPool`, K3), with the fixed
+    filter; "reference" and "fused" run the two modules."""
+
+    def __init__(self, channels: int, impl: str):
+        super().__init__(nn.MaxPool2d(kernel_size=2, stride=1),
+                         BlurPool(channels))
+        self.impl = impl
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.impl == "pallas":
+            return pool.MaxBlurPool.apply(x)
+        return super().forward(x)
 
 
 class ResNetBasicBlock(nn.Module):
@@ -61,8 +77,9 @@ class ResnetMatchingEncoder(nn.Module):
     resolution.
 
     `pool_impl` "reference" and "fused" are the same math and run the same
-    chain here. "pallas" is the fused max-blur-pool kernel K3, which is not
-    ported yet, and raises. Only `norm="batch"` is ported.
+    chain here; "pallas" runs the fused max-blur-pool kernels K3 (forward
+    and backward) on the card, their plain versions on the CPU. Only
+    `norm="batch"` is ported.
     """
 
     def __init__(self, num_ch_out: int = 16, norm: str = "batch",
@@ -71,18 +88,13 @@ class ResnetMatchingEncoder(nn.Module):
         if norm != "batch":
             raise NotImplementedError(
                 f"matching_norm={norm!r} is not ported; only 'batch' is")
-        if pool_impl == "pallas":
-            raise NotImplementedError(
-                "matching_pool_impl='pallas' is the fused max-blur-pool "
-                "kernel K3, not ported yet (ROADMAP Queue 2, item 4)")
-        if pool_impl not in ("reference", "fused"):
+        if pool_impl not in ("reference", "fused", "pallas"):
             raise ValueError(f"unknown matching_pool_impl {pool_impl!r}")
         self.net = nn.Sequential(
             nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False),      # 0
             BatchNorm2d(64, eps=1e-5),                                 # 1
             nn.ReLU(inplace=True),                                     # 2
-            nn.Sequential(nn.MaxPool2d(kernel_size=2, stride=1),
-                          BlurPool(64)),                               # 3
+            StemPool(64, pool_impl),                                   # 3
             nn.Sequential(ResNetBasicBlock(64), ResNetBasicBlock(64)),  # 4
             nn.Conv2d(64, 128, 1),                                     # 5
             InstanceNorm32(),                                          # 6

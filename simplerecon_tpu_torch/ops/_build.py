@@ -26,6 +26,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -104,6 +106,48 @@ def load_library() -> ctypes.CDLL:
     lib.fused_sweep_mlp.restype = ci
     lib.fused_sweep_mlp_bwd.argtypes = [ci] + [vp] * 19 + [ci] * 7 + [vp]
     lib.fused_sweep_mlp_bwd.restype = ci
+    lib.fused_sweep_dot.argtypes = [ci] + [vp] * 6 + [ci] * 6 + [vp]
+    lib.fused_sweep_dot.restype = ci
+    ll = ctypes.c_longlong
+    lib.max_blur_pool_fwd.argtypes = [ci, vp, vp, ll, ci, ci, vp]
+    lib.max_blur_pool_fwd.restype = ci
+    lib.max_blur_pool_bwd.argtypes = [ci, vp, vp, vp, ll, ci, ci, vp]
+    lib.max_blur_pool_bwd.restype = ci
     lib.fused_sweep_error_string.argtypes = [ci]
     lib.fused_sweep_error_string.restype = ctypes.c_char_p
     return lib
+
+
+# kernel dtype codes of the C entry points
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def kernel_device(t: torch.Tensor, name: str):
+    """None for a CPU tensor (the plain version runs), the device for a
+    CUDA tensor; raises for any other device."""
+    if t.device.type == "cpu":
+        return None
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on CPU or CUDA, not {t.device}")
+    return t.device
+
+
+def check(name, t, dtype, shape, device):
+    """Raises unless `t` is a contiguous `dtype` tensor of `shape` on
+    `device`."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def raise_on_error(lib, name: str, rc: int):
+    """Raises when a C entry point returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           + lib.fused_sweep_error_string(rc).decode())

@@ -26,6 +26,12 @@ replaces `banded_warp_feature_volume_bwd` (body `_banded_bwd_kernel`,
 launched by `_banded_bwd_call`); its plain version is
 `fused_sweep_backward_reference`. `FusedSweep` joins the two as a
 `torch.autograd.Function`.
+
+`dot_sweep` is the dot-product model's cost volume (K1-dot, the
+`fused_sweep_dot` entry of `csrc/fused_sweep.cu`), which replaces
+`banded_warp_dot_volume` (the same `_banded_kernel` in mode "dot"); its
+plain version is `dot_sweep_reference`. `DotSweep` makes it
+differentiable with a plain PyTorch backward, `dot_sweep_backward`.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from simplerecon_tpu_torch.ops import geometry as geo
 HIDDEN = 128
 REFERENCE_PLANE_CHUNK = 8
 BWD_TILE = 32     # reference pixels per tile of the backward kernel
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DOT_CHANNELS = 16  # the feature width K1-dot takes (its vector tap loads)
 
 
 def mlp_in_channels(k: int, c: int) -> int:
@@ -219,16 +225,25 @@ def _scatter_taps_(d_src_rows, d_s_bkdNc, pix_bkdN2, h: int, w: int):
         d_src_rows.index_add_(0, idx.reshape(-1), vals.reshape(-1, c))
 
 
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def check_dot_args(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44,
+                   src_Ks_bk44, cur_invK_b44, depth_planes_bd) -> tuple:
+    """Raises on any feature or geometry argument the kernels do not take;
+    returns (b, k, h, w, c, d). The compute dtype is the features'."""
+    device = src_feats_bkhwc.device
+    cdt = src_feats_bkhwc.dtype
+    if cdt not in _build.DTYPE_CODES:
+        raise TypeError(f"compute dtype {cdt} is not float32 or bfloat16")
+    b, k, h, w, c = src_feats_bkhwc.shape
+    d = depth_planes_bd.shape[1]
+    f32 = torch.float32
+    check = _build.check
+    check("src_feats", src_feats_bkhwc, cdt, (b, k, h, w, c), device)
+    check("cur_feats", cur_bNc, cdt, (b, h * w, c), device)
+    check("src_extrinsics", src_extrinsics_bk44, f32, (b, k, 4, 4), device)
+    check("src_Ks", src_Ks_bk44, f32, (b, k, 4, 4), device)
+    check("cur_invK", cur_invK_b44, f32, (b, 4, 4), device)
+    check("depth_planes", depth_planes_bd, f32, (b, d), device)
+    return b, k, h, w, c, d
 
 
 def check_args(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44, src_Ks_bk44,
@@ -236,30 +251,22 @@ def check_args(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44, src_Ks_bk44,
                w0, b0, w1, b1, w2, b2) -> tuple:
     """Raises on any argument the kernel does not take; returns
     (b, k, h, w, c, d)."""
+    b, k, h, w, c, d = check_dot_args(
+        src_feats_bkhwc, cur_bNc, src_extrinsics_bk44, src_Ks_bk44,
+        cur_invK_b44, depth_planes_bd)
     device = src_feats_bkhwc.device
-    cdt = w0.dtype
-    if cdt not in _DTYPE_CODES:
-        raise TypeError(f"compute dtype {cdt} is not float32 or bfloat16")
-    b, k, h, w, c = src_feats_bkhwc.shape
-    d = depth_planes_bd.shape[1]
-    n = h * w
+    cdt = src_feats_bkhwc.dtype
     cin = mlp_in_channels(k, c)
     f32 = torch.float32
-    _check("src_feats", src_feats_bkhwc, cdt, (b, k, h, w, c), device)
-    _check("cur_feats", cur_bNc, cdt, (b, n, c), device)
-    _check("src_extrinsics", src_extrinsics_bk44, f32, (b, k, 4, 4), device)
-    _check("src_Ks", src_Ks_bk44, f32, (b, k, 4, 4), device)
-    _check("cur_invK", cur_invK_b44, f32, (b, 4, 4), device)
-    _check("depth_planes", depth_planes_bd, f32, (b, d), device)
-    _check("pose_meta", pose_meta_bk3, f32, (b, k, 3), device)
-    _check("src_loc", src_loc_bk3, f32, (b, k, 3), device)
-    _check("w0", w0, cdt, (cin, HIDDEN), device)
-    _check("b0", b0, f32, (HIDDEN,), device)
-    _check("w1", w1, cdt, (HIDDEN, HIDDEN), device)
-    _check("b1", b1, f32, (HIDDEN,), device)
-    _check("w2", w2, cdt, (HIDDEN, 1), device)
-    _check("b2", b2, f32, (1,), device)
-
+    check = _build.check
+    check("pose_meta", pose_meta_bk3, f32, (b, k, 3), device)
+    check("src_loc", src_loc_bk3, f32, (b, k, 3), device)
+    check("w0", w0, cdt, (cin, HIDDEN), device)
+    check("b0", b0, f32, (HIDDEN,), device)
+    check("w1", w1, cdt, (HIDDEN, HIDDEN), device)
+    check("b1", b1, f32, (HIDDEN,), device)
+    check("w2", w2, cdt, (HIDDEN, 1), device)
+    check("b2", b2, f32, (1,), device)
     return b, k, h, w, c, d
 
 
@@ -284,7 +291,7 @@ def fused_sweep(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44, src_Ks_bk44,
     args = (src_feats_bkhwc, cur_bNc, src_extrinsics_bk44, src_Ks_bk44,
             cur_invK_b44, depth_planes_bd, pose_meta_bk3, src_loc_bk3,
             w0, b0, w1, b1, w2, b2)
-    device = _kernel_device(src_feats_bkhwc, "fused_sweep")
+    device = _build.kernel_device(src_feats_bkhwc, "fused_sweep")
     if device is None:
         return fused_sweep_reference(*args)
     b, k, h, w, c, d = check_args(*args)
@@ -296,9 +303,9 @@ def fused_sweep(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44, src_Ks_bk44,
         ptrs = [t.data_ptr() for t in (
             src_feats_bkhwc, cur_bNc, proj, cur_invK_b44, depth_planes_bd,
             pose_meta_bk3, src_loc_bk3, w0, b0, w1, b1, w2, b2, out)]
-        rc = lib.fused_sweep_mlp(_DTYPE_CODES[w0.dtype], *ptrs,
+        rc = lib.fused_sweep_mlp(_build.DTYPE_CODES[w0.dtype], *ptrs,
                                  b, k, h, w, c, d, stream)
-    _raise_on_error(lib, "fused_sweep_mlp", rc)
+    _build.raise_on_error(lib, "fused_sweep_mlp", rc)
     fused_sweep.launches += 1
     return out
 
@@ -322,11 +329,11 @@ def fused_sweep_bwd(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44,
     args = (src_feats_bkhwc, cur_bNc, src_extrinsics_bk44, src_Ks_bk44,
             cur_invK_b44, depth_planes_bd, pose_meta_bk3, src_loc_bk3,
             w0, b0, w1, b1, w2, b2)
-    device = _kernel_device(src_feats_bkhwc, "fused_sweep_bwd")
+    device = _build.kernel_device(src_feats_bkhwc, "fused_sweep_bwd")
     if device is None:
         return fused_sweep_backward_reference(*args, g_bdN)
     b, k, h, w, c, d = check_args(*args)
-    _check("g", g_bdN, torch.float32, (b, d, h * w), device)
+    _build.check("g", g_bdN, torch.float32, (b, d, h * w), device)
     cin = mlp_in_channels(k, c)
     n_params = cin * HIDDEN + HIDDEN * HIDDEN + 3 * HIDDEN + 1
     tiles = b * -(-h * w // BWD_TILE)
@@ -347,9 +354,9 @@ def fused_sweep_bwd(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44,
             src_feats_bkhwc, cur_bNc, proj, cur_invK_b44, depth_planes_bd,
             pose_meta_bk3, src_loc_bk3, w0, w0t, b0, w1, w1t, b1, w2, g_bdN,
             d_src, d_cur, partials, d_params)]
-        rc = lib.fused_sweep_mlp_bwd(_DTYPE_CODES[w0.dtype], *ptrs, blocks,
-                                     b, k, h, w, c, d, stream)
-    _raise_on_error(lib, "fused_sweep_mlp_bwd", rc)
+        rc = lib.fused_sweep_mlp_bwd(_build.DTYPE_CODES[w0.dtype], *ptrs,
+                                     blocks, b, k, h, w, c, d, stream)
+    _build.raise_on_error(lib, "fused_sweep_mlp_bwd", rc)
     fused_sweep_bwd.launches += 1
     sizes = (cin * HIDDEN, HIDDEN * HIDDEN, HIDDEN, HIDDEN, HIDDEN, 1)
     d_w0, d_w1, d_b0, d_b1, d_w2, d_b2 = torch.split(d_params, sizes)
@@ -358,22 +365,6 @@ def fused_sweep_bwd(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44,
 
 
 fused_sweep_bwd.launches = 0
-
-
-def _kernel_device(t: torch.Tensor, name: str):
-    """None for a CPU tensor (the plain version runs), the device for a
-    CUDA tensor; raises for any other device."""
-    if t.device.type == "cpu":
-        return None
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} runs on CPU or CUDA, not {t.device}")
-    return t.device
-
-
-def _raise_on_error(lib, name: str, rc: int):
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           + lib.fused_sweep_error_string(rc).decode())
 
 
 class FusedSweep(torch.autograd.Function):
@@ -416,3 +407,127 @@ class FusedSweep(torch.autograd.Function):
         return args[:8] + (w0.to(cdt).contiguous(), b0,
                            w1.to(cdt).contiguous(), b1,
                            w2.to(cdt).contiguous(), b2)
+
+
+# --------------------------------------------------------------------------
+# the dot-product sweep (K1-dot)
+# --------------------------------------------------------------------------
+
+def dot_sweep_reference(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44,
+                        src_Ks_bk44, cur_invK_b44, depth_planes_bd
+                        ) -> torch.Tensor:
+    """Plain PyTorch version of the dot-product sweep: the gather warp in
+    chunks of 8 planes, then the masked dot of each sample with the
+    reference features, summed over views. Features are sampled in
+    float32 from maps in the compute dtype; the dot is float32. Returns
+    (b, d, N) float32."""
+    cur = cur_bNc.float()
+    src = src_feats_bkhwc.float()
+    chunks = []
+    for s in range(0, depth_planes_bd.shape[1], REFERENCE_PLANE_CHUNK):
+        warp = cv_ops.sweep_warp(
+            src, src_extrinsics_bk44, src_Ks_bk44, cur_invK_b44,
+            depth_planes_bd[:, s:s + REFERENCE_PLANE_CHUNK].float())
+        dot_bkdN = torch.einsum("bkdnc,bnc->bkdn", warp.sampled_bkdNc, cur)
+        chunks.append((dot_bkdN * warp.mask_bkdN).sum(dim=1))
+    return torch.cat(chunks, dim=1)
+
+
+def dot_sweep_backward(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44,
+                       src_Ks_bk44, cur_invK_b44, depth_planes_bd,
+                       g_bdN) -> tuple:
+    """Backward of the dot-product sweep, in plain PyTorch on any device,
+    given the cotangent g (b, d, N) of its output: with m = mask * g per
+    (view, plane, pixel),
+        d_cur = sum over views and planes of m * sample,
+        d_src = the bilinear transpose of m * cur (a scatter of the taps).
+    Geometry gets none. Recomputes the warp chunk by chunk; returns float32
+    (d_src (b,k,h,w,c), d_cur (b,N,c)).
+
+    The JAX package has no backward kernel for the dot mode (it trains
+    the dot model through autodiff of its XLA warp), so neither does the
+    port. Its work shows in a profiler as the range "dot_sweep_backward".
+    """
+    b, k, h, w, c = src_feats_bkhwc.shape
+    f32 = torch.float32
+    with torch.profiler.record_function("dot_sweep_backward"):
+        cur = cur_bNc.float()
+        src = src_feats_bkhwc.float()
+        g_bdN = g_bdN.to(f32)
+        d_src = torch.zeros((b * k * h * w, c), dtype=f32, device=cur.device)
+        d_cur = torch.zeros((b, h * w, c), dtype=f32, device=cur.device)
+        for s in range(0, depth_planes_bd.shape[1], REFERENCE_PLANE_CHUNK):
+            sl = slice(s, s + REFERENCE_PLANE_CHUNK)
+            warp = cv_ops.sweep_warp(src, src_extrinsics_bk44, src_Ks_bk44,
+                                     cur_invK_b44,
+                                     depth_planes_bd[:, sl].float())
+            m_bkdN = warp.mask_bkdN * g_bdN[:, None, sl]
+            d_cur += torch.einsum("bkdn,bkdnc->bnc", m_bkdN,
+                                  warp.sampled_bkdNc)
+            _scatter_taps_(d_src, m_bkdN[..., None] * cur[:, None, None],
+                           warp.pix_bkdN2, h, w)
+    return d_src.reshape(b, k, h, w, c), d_cur
+
+
+def dot_sweep(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44, src_Ks_bk44,
+              cur_invK_b44, depth_planes_bd) -> torch.Tensor:
+    """The dot-product sweep (K1-dot): for each (batch, plane, reference
+    pixel), the sum over source views of mask * <bilinear sample, cur>,
+    mask = projected z + eps > 0. Returns (b, d, N) float32.
+
+    Arguments are `fused_sweep`'s first six (features in float32 or
+    bfloat16, geometry in float32, all contiguous); on the card the
+    features have 16 channels and start on 16-byte boundaries. No autograd:
+    `DotSweep` is the differentiable form. CPU tensors go to
+    `dot_sweep_reference`; CUDA tensors launch the kernel, or raise.
+    """
+    args = (src_feats_bkhwc, cur_bNc, src_extrinsics_bk44, src_Ks_bk44,
+            cur_invK_b44, depth_planes_bd)
+    device = _build.kernel_device(src_feats_bkhwc, "dot_sweep")
+    if device is None:
+        return dot_sweep_reference(*args)
+    b, k, h, w, c, d = check_dot_args(*args)
+    if c != DOT_CHANNELS:
+        raise ValueError(f"K1-dot takes {DOT_CHANNELS} feature channels, "
+                         f"got {c}")
+    for name, t in (("src_feats", src_feats_bkhwc), ("cur_feats", cur_bNc)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary for "
+                             "K1-dot's vector loads")
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        proj = torch.matmul(src_Ks_bk44, src_extrinsics_bk44).contiguous()
+        out = torch.empty((b, d, h * w), dtype=torch.float32, device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        ptrs = [t.data_ptr() for t in (src_feats_bkhwc, cur_bNc, proj,
+                                       cur_invK_b44, depth_planes_bd, out)]
+        rc = lib.fused_sweep_dot(_build.DTYPE_CODES[src_feats_bkhwc.dtype],
+                                 *ptrs, b, k, h, w, c, d, stream)
+    _build.raise_on_error(lib, "fused_sweep_dot", rc)
+    dot_sweep.launches += 1
+    return out
+
+
+dot_sweep.launches = 0
+
+
+class DotSweep(torch.autograd.Function):
+    """The differentiable dot-product sweep: forward `dot_sweep` (K1-dot
+    on the card, its plain version on the CPU), backward
+    `dot_sweep_backward` (plain PyTorch). Gradients go to the source and
+    reference features, in their dtype; geometry gets none."""
+
+    @staticmethod
+    def forward(ctx, src_feats_bkhwc, cur_bNc, src_extrinsics_bk44,
+                src_Ks_bk44, cur_invK_b44, depth_planes_bd):
+        args = (src_feats_bkhwc, cur_bNc, src_extrinsics_bk44, src_Ks_bk44,
+                cur_invK_b44, depth_planes_bd)
+        ctx.save_for_backward(*args)
+        return dot_sweep(*args)
+
+    @staticmethod
+    def backward(ctx, g_bdN):
+        args = ctx.saved_tensors
+        d_src, d_cur = dot_sweep_backward(*args, g_bdN)
+        return (d_src.to(args[0].dtype), d_cur.to(args[1].dtype),
+                None, None, None, None)

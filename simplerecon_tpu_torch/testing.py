@@ -1,7 +1,8 @@
-"""Seeded synthetic inputs and settings for checking the port: the fused
-sweep's arguments, a posed frame stream, a training batch, the hero
-model's options, and a weight perturbation that gives random-init
-outputs some spread.
+"""Seeded synthetic inputs and settings for checking the port: the
+arguments of the fused and dot-product sweeps and of the stem pool, a
+posed frame stream, a training batch, the hero and dot-product models'
+options, and a weight perturbation that gives random-init outputs some
+spread.
 
 Used by `chip_smoke.py` and the tests; everything is drawn from numpy
 with a seed, so two devices see the same values.
@@ -33,9 +34,22 @@ HERO_OPTIONS = dict(
     lr_steps=(70000, 80000), grad_clip=0.0)
 
 
+# configs/models/dot_product_model.yaml over the Options defaults: the
+# hero values but the dot-product cost volume; this path runs it with the
+# fused stem pool (K3)
+DOT_OPTIONS = dict(HERO_OPTIONS, feature_volume_type="simple_cost_volume",
+                   matching_pool_impl="pallas")
+
+
 def hero_options(**overrides) -> types.SimpleNamespace:
     """A plain namespace with the hero model's option values."""
     return types.SimpleNamespace(**{**HERO_OPTIONS, **overrides})
+
+
+def dot_options(**overrides) -> types.SimpleNamespace:
+    """A plain namespace with the dot-product model's option values, with
+    `matching_pool_impl="pallas"`."""
+    return types.SimpleNamespace(**{**DOT_OPTIONS, **overrides})
 
 
 def _rot_y(angle: float) -> np.ndarray:
@@ -98,6 +112,34 @@ def sweep_case(b: int, k: int, h: int, w: int, c: int, d: int,
         t(rng.randn(HIDDEN, 1) / np.sqrt(HIDDEN), dtype),
         t(0.1 * rng.randn(1)),
     ]
+
+
+def dot_case(b: int, k: int, h: int, w: int, c: int, d: int,
+             dtype: torch.dtype, device, seed: int = 0) -> list:
+    """Arguments of `dot_sweep`, in order: `sweep_case`'s features and
+    geometry."""
+    return sweep_case(b, k, h, w, c, d, dtype, device, seed)[:6]
+
+
+def pool_case(shape, dtype: torch.dtype, device, seed: int = 0
+              ) -> torch.Tensor:
+    """A ReLU'd NCHW input of the stem pool, on quarter steps, so exact
+    zeros and ties inside 2x2 windows occur."""
+    x = np.random.RandomState(seed).randn(*shape)
+    x = np.maximum(np.round(4.0 * x) / 4.0, 0.0).astype(np.float32)
+    return torch.from_numpy(x).to(device=device, dtype=dtype)
+
+
+def pool_cotangent(shape, dtype: torch.dtype, device, seed: int = 0,
+                   positive: bool = False) -> torch.Tensor:
+    """A cotangent of the stem pool's output (shape (b, c, Ho, Wo)).
+    `positive` draws it from [0.5, 1.5]: then every blur-transposed
+    window gradient is positive, and dx is nonzero exactly where an
+    element is the first maximum of some window."""
+    rng = np.random.RandomState(seed)
+    g = rng.uniform(0.5, 1.5, shape) if positive else rng.randn(*shape)
+    return torch.from_numpy(g.astype(np.float32)).to(device=device,
+                                                     dtype=dtype)
 
 
 def sweep_cotangent(b: int, d: int, n: int, device, seed: int = 0

@@ -1,6 +1,7 @@
-"""The fused sweep's CUDA kernels (K1 forward, K2 backward) against their
-plain PyTorch versions, on the card. Marked `gpu`; skipped where there
-is no CUDA device. Run on the H100 with
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card: the fused sweep (K1 forward, K2 backward), the dot-product sweep
+(K1-dot) and the stem pool (K3 forward and backward). Marked `gpu`;
+skipped where there is no CUDA device. Run on the H100 with
 `python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py`.
 
 K1 tolerances: float32 1e-4 * max(1, max |plain|): both sum the same
@@ -23,20 +24,38 @@ bf16 against the float32 plain backward on the same bf16-valued inputs:
 rounds at six points (the MLP input, h0, h1, d_h1p, d_h0p, d_s) by up to
 2^-9 each, and the gradients sum those products with cancellation. The
 plain backward in bf16 is as far from float32 (measured <= 4.6e-2).
+
+K1-dot: max |kernel - plain| <= 1e-4 * max(1, max |plain|) in float32
+and in bf16. Neither version rounds inside: both sample bf16 maps in
+float32 and dot in float32, so the two differ only by the order of the
+sums and by tap coordinates that round differently.
+
+K3, float32: max |kernel - plain| <= 1e-5 * max(1, max |plain|) for the
+output and for dx (the same sums of at most 36 positive-weight terms in
+another order). bf16: the kernel sums in float32 and rounds once, so
+against the plain chain in float32 on the same bf16-valued input every
+element is within 2^-8 of the reference's magnitude (one rounding,
+2^-9, with room for the sum order). dx must be nonzero at exactly the
+elements where the plain autograd's is, for a positive cotangent (the
+first maximum of each 2x2 window, ties included).
 """
 
 import pytest
 import torch
 
-from simplerecon_tpu_torch.ops import cuda_cv
-from simplerecon_tpu_torch.testing import (relative_errors, sweep_case,
-                                           sweep_cotangent)
+from simplerecon_tpu_torch.ops import cuda_cv, pool
+from simplerecon_tpu_torch.testing import (dot_case, pool_case,
+                                           pool_cotangent, relative_errors,
+                                           sweep_case, sweep_cotangent)
 
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 BWD_MAX_TOL = 1e-4                          # float32, odd shape
 BWD_L2_TOL = {torch.float32: 1e-2, torch.bfloat16: 0.1}
+DOT_TOL = 1e-4
+POOL_TOL = 1e-5                             # float32
+POOL_BF16_REL = 2.0 ** -8
 
 
 @pytest.fixture
@@ -116,3 +135,108 @@ def test_autograd_through_the_kernels_launches_each_once(cuda):
             cuda_cv.fused_sweep_bwd.launches) == (before[0] + 1,
                                                   before[1] + 1)
     assert args[0].grad is not None and args[8].grad is not None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 3, 13, 21, 16, 5),
+                                   (1, 7, 96, 128, 16, 64)],
+                         ids=["odd", "hero"])
+def test_dot_kernel_matches_plain_version(cuda, dtype, shape):
+    args = dot_case(*shape, dtype=dtype, device=cuda, seed=1)
+    before = cuda_cv.dot_sweep.launches
+    got = cuda_cv.dot_sweep(*args)
+    want = cuda_cv.dot_sweep_reference(*args)
+    torch.cuda.synchronize()
+    assert cuda_cv.dot_sweep.launches == before + 1
+    b, k, h, w, c, d = shape
+    assert got.shape == (b, d, h * w) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= DOT_TOL * max(1.0, want.abs().max().item()), err
+
+
+def test_dot_sweep_function_launches_the_kernel_once(cuda):
+    args = dot_case(1, 2, 8, 8, 16, 3, dtype=torch.float32, device=cuda)
+    args[0].requires_grad_()
+    args[1].requires_grad_()
+    before = cuda_cv.dot_sweep.launches
+    out = cuda_cv.DotSweep.apply(*args)
+    g = torch.randn_like(out)
+    out.backward(g)
+    assert cuda_cv.dot_sweep.launches == before + 1
+    d_src, d_cur = cuda_cv.dot_sweep_backward(*[a.detach() for a in args],
+                                              g)
+    # the plain backward's scatter (index_add_) sums with atomics on the
+    # card, in no fixed order: last bits differ between two calls
+    torch.testing.assert_close(args[0].grad, d_src, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(args[1].grad, d_cur, rtol=1e-5, atol=1e-5)
+
+
+def _pool_errors(x, positive_g):
+    """(output, dx) of the kernels and of the plain chain in float32."""
+    got = pool.max_blur_pool(x)
+    got_dx = pool.max_blur_pool_bwd(x, positive_g)
+    want = pool.max_blur_pool_reference(x.float())
+    want_dx = pool.max_blur_pool_backward_reference(x.float(),
+                                                    positive_g.float())
+    torch.cuda.synchronize()
+    return (got, want), (got_dx, want_dx)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 3, 13, 22), (8, 64, 192, 256)],
+                         ids=["odd", "encoder_b1"])
+def test_pool_kernels_match_plain_versions(cuda, dtype, shape):
+    x = pool_case(shape, dtype, cuda, seed=3)
+    b, c, h, w = shape
+    g = pool_cotangent((b, c) + pool.output_size(h, w), dtype, cuda, seed=4,
+                       positive=True)
+    before = (pool.max_blur_pool.launches, pool.max_blur_pool_bwd.launches)
+    pairs = _pool_errors(x, g)
+    assert (pool.max_blur_pool.launches,
+            pool.max_blur_pool_bwd.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    for got, want in pairs:
+        assert got.shape == want.shape and got.dtype == dtype
+        assert torch.isfinite(got).all()
+        diff = (got.float() - want).abs()
+        if dtype == torch.float32:
+            assert diff.max() <= POOL_TOL * max(1.0, want.abs().max()), diff
+        else:
+            assert (diff <= POOL_BF16_REL * want.abs() + 1e-6).all(), diff
+    got_dx, want_dx = pairs[1]
+    assert torch.equal(got_dx != 0, want_dx != 0)
+
+
+def test_max_blur_pool_function_launches_each_kernel_once(cuda):
+    x = pool_case((2, 4, 12, 16), torch.float32, cuda, seed=5)
+    x.requires_grad_()
+    before = (pool.max_blur_pool.launches, pool.max_blur_pool_bwd.launches)
+    pool.MaxBlurPool.apply(x).square().sum().backward()
+    assert (pool.max_blur_pool.launches,
+            pool.max_blur_pool_bwd.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+
+
+def test_new_wrappers_reject_what_their_kernels_do_not_take(cuda):
+    x = pool_case((1, 2, 8, 8), torch.float32, cuda)
+    with pytest.raises(ValueError, match="h, w >= 4"):
+        pool.max_blur_pool(x[:, :, :3].contiguous())
+    with pytest.raises(ValueError, match="shape"):
+        pool.max_blur_pool_bwd(x, torch.zeros(1, 2, 3, 3, device=cuda))
+    args = dot_case(1, 2, 8, 8, 16, 3, dtype=torch.float32, device=cuda)
+    mixed = list(args)
+    mixed[1] = args[1].to(torch.bfloat16)
+    with pytest.raises(TypeError):
+        cuda_cv.dot_sweep(*mixed)
+    narrow = dot_case(1, 2, 8, 8, 8, 3, dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="16 feature channels"):
+        cuda_cv.dot_sweep(*narrow)
+    shifted = list(args)
+    shifted[0] = torch.empty(args[0].numel() + 1, device=cuda)[1:].view(
+        args[0].shape).copy_(args[0])
+    with pytest.raises(ValueError, match="16-byte"):
+        cuda_cv.dot_sweep(*shifted)

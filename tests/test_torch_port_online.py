@@ -1,5 +1,6 @@
 """The port's OnlineSession on the CPU, and the port's import boundary:
-importing the port, a forward and a training step load none of jax,
+importing the port, a forward and a training step of the hero model and
+of the dot-product model (with the fused stem pool) load none of jax,
 flax, yaml, PIL or the JAX package.
 
 OnlineSession must make the same keyframe decisions as the JAX package's
@@ -152,7 +153,8 @@ def test_port_imports_no_jax_flax_yaml_or_pil():
         from simplerecon_tpu_torch.models.depth_model import \\
             build_depth_model
         from simplerecon_tpu_torch.parallel import train
-        from simplerecon_tpu_torch.testing import hero_options, train_batch
+        from simplerecon_tpu_torch.testing import (dot_options, hero_options,
+                                                   train_batch)
         opts = hero_options(image_height=64, image_width=64,
                             matching_num_depth_bins=4, model_num_views=2,
                             precision="32")
@@ -173,6 +175,18 @@ def test_port_imports_no_jax_flax_yaml_or_pil():
             train.batch_to_device(train_batch(opts, 1, seed=0), "cpu"),
             torch.Generator().manual_seed(0))
         assert torch.isfinite(metrics["loss"]) and optimizer.count == 1
+        dot = build_depth_model(dot_options(
+            image_height=64, image_width=64, matching_num_depth_bins=4,
+            model_num_views=2, precision="32"), device="cpu")
+        with torch.no_grad():
+            out = dot(cur, src, return_mask=True)
+        assert torch.isfinite(out["depth_pred_s0_bhw1"]).all()
+        optimizer = train.make_optimizer(opts, dot)
+        metrics = train.train_step(
+            dot, optimizer,
+            train.batch_to_device(train_batch(opts, 1, seed=0), "cpu"),
+            torch.Generator().manual_seed(0))
+        assert torch.isfinite(metrics["loss"]) and optimizer.count == 1
         loaded = [m for m in sys.modules
                   if m in ("jax", "flax", "yaml", "PIL")
                   or m == "simplerecon_tpu"
@@ -188,11 +202,9 @@ def test_port_imports_no_jax_flax_yaml_or_pil():
 
 
 @pytest.mark.parametrize("override", [
-    {"matching_pool_impl": "pallas"},
     {"matching_norm": "group"},
     {"cost_volume_backend": "pallas_full"},
     {"cost_volume_backend": "pallas_v1"},
-    {"feature_volume_type": "simple_cost_volume"},
     {"matching_encoder_type": "unet_encoder"},
 ], ids=lambda o: "-".join(map(str, o.values())))
 def test_unported_options_raise(override):
@@ -206,3 +218,21 @@ def test_sweep_backends_select_the_one_path():
                                             fast_cost_volume=True),
                                   device="cpu")
         assert type(model.cost_volume).__name__ == "MLPFeatureVolume"
+
+
+@pytest.mark.parametrize("backend", ["pallas", "pallas_interpret", "xla",
+                                     "xla_fused"])
+def test_dot_model_and_fused_pool_build_for_every_sweep_backend(backend):
+    """The dot-product model with the fused stem pool (K3) builds on the
+    CPU from every backend that selects the port's one sweep path: the
+    cost volume has no parameters and hands the CV encoder one channel
+    per plane."""
+    opts = tiny_opts(feature_volume_type="simple_cost_volume",
+                     matching_pool_impl="pallas", cost_volume_backend=backend,
+                     fast_cost_volume=True)
+    model = build_depth_model(opts, device="cpu")
+    assert type(model.cost_volume).__name__ == "DotProductCostVolume"
+    assert model.matching_model.net[3].impl == "pallas"
+    assert not list(model.cost_volume.parameters())
+    assert (model.cost_volume_net.convs["ds_conv_0"].conv1.in_channels
+            == opts.matching_num_depth_bins)

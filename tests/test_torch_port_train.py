@@ -125,20 +125,35 @@ def test_train_mode_batch_norm_matches_flax():
 def slice_run():
     """The port's initial model, the numpy batch, and the JAX step's
     outputs for both flips: {flip: (losses, grads, new batch_stats)}."""
-    base = spread_outputs_(build_depth_model(OPTS, device="cpu", seed=20),
-                           seed=20)
-    params, stats, report = convert_state_dict(
-        {k: v.numpy() for k, v in base.state_dict().items()})
-    assert not [k for k in report["skipped"]
-                if not k.endswith((".filt", "num_batches_tracked"))]
-    batch = train_batch(OPTS, BATCH, seed=21)
+    base, params, stats, batch = seeded_slice(OPTS, seed=20)
     jmodel = JaxDepthModel(
         image_height=OPTS.image_height, image_width=OPTS.image_width,
         matching_num_depth_bins=OPTS.matching_num_depth_bins,
         model_num_views=OPTS.model_num_views,
         cost_volume_backend="xla_fused",
         cost_volume_custom_vjp="pallas_bwd", dtype=jnp.float32)
+    return base, params, stats, batch, jax_train_runs(jmodel, params, stats,
+                                                      batch)
 
+
+def seeded_slice(opts, seed: int) -> tuple:
+    """The port's seeded model with its batch norms redrawn, the same
+    weights as a JAX tree (the JAX package's own `convert_state_dict`),
+    and a numpy batch: (base, params, batch_stats, batch)."""
+    base = spread_outputs_(build_depth_model(opts, device="cpu", seed=seed),
+                           seed=seed)
+    params, stats, report = convert_state_dict(
+        {k: v.numpy() for k, v in base.state_dict().items()})
+    assert not [k for k in report["skipped"]
+                if not k.endswith((".filt", "num_batches_tracked"))]
+    return base, params, stats, train_batch(opts, BATCH, seed=seed + 1)
+
+
+def jax_train_runs(jmodel, params, stats, batch,
+                   flips=(False, True)) -> dict:
+    """The JAX step's outputs for each of `flips`, as numpy: {flip:
+    (losses, grads, new batch_stats)}. One compiled gradient serves both
+    flips."""
     def loss_fn(p, s, b, flip):
         losses, _, new_stats = jtrain._forward_and_losses(
             jmodel, p, s, b, flip, train=True)
@@ -148,18 +163,18 @@ def slice_run():
     jbatch = jax.tree_util.tree_map(jnp.asarray, batch)
     runs = {}
     with jax.default_matmul_precision("highest"):
-        for flip in (False, True):
+        for flip in flips:
             grads, (losses, new_stats) = grad_fn(params, stats, jbatch,
                                                  jnp.asarray(flip))
             runs[flip] = (_numpy_tree(losses), _numpy_tree(grads),
                           _numpy_tree(new_stats))
-    return base, params, stats, batch, runs
+    return runs
 
 
-@pytest.mark.parametrize("flip", [False, True], ids=["plain", "flip"])
-def test_train_step_matches_jax(slice_run, flip):
-    base, params, stats, batch, runs = slice_run
-    want_losses, want_grads, want_stats = runs[flip]
+def assert_step_matches(base, params, stats, batch, run, flip):
+    """One port training-mode forward and backward of `base` (a copy) on
+    `batch` against the JAX step's `run` = (losses, grads, new stats)."""
+    want_losses, want_grads, want_stats = run
     model = copy.deepcopy(base).train()
     losses, _ = ttrain.forward_and_losses(
         model, ttrain.batch_to_device(batch, "cpu"), flip)
@@ -197,6 +212,12 @@ def test_train_step_matches_jax(slice_run, flip):
             np.testing.assert_allclose(
                 port_sd[key].numpy(), want, rtol=0,
                 atol=STATS_TOL * (1 + np.abs(want).max()), err_msg=key)
+
+
+@pytest.mark.parametrize("flip", [False, True], ids=["plain", "flip"])
+def test_train_step_matches_jax(slice_run, flip):
+    base, params, stats, batch, runs = slice_run
+    assert_step_matches(base, params, stats, batch, runs[flip], flip)
 
 
 def test_adamw_update_matches_optax(slice_run):
