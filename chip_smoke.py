@@ -60,10 +60,27 @@ non-zero, and only a run that passes them all prints the last line:
 13. the card against the CPU in float32 at 192x256 (dot widths): the
    forward as in phase 5, and the first training step's loss, gradient
    norm and gradients of the first matching conv and a decoder head as
-   in phase 8.
+   in phase 8;
+14. the hero model's inference-only kernels, K5 (metadata + MLP over a
+   warped stack, backend "pallas_v1") and K4 (the full-width fused warp,
+   "pallas_full"), against their plain versions at the small odd shape
+   (N not a multiple of 64), at hero b=1 in float32 (TF32 off) and bf16,
+   and at hero b=8 in bf16 (K5 at the 32 planes of one of its two
+   launches there); CUDA-event times of both and the bound;
+15. the hero model (bf16, seeded weights with `spread_outputs_`) served
+   through `OnlineSession` over the 12-frame stream with each of its
+   three sweeps, "pallas" (K1), "pallas_v1" (the plain warp and K5) and
+   "pallas_full" (K4), in turns: outputs finite and of the right shapes,
+   K5 launched once per answer and plane chunk, K4 once per answer, K1
+   only for "pallas", K2 never; request latency; the three sweeps' depth
+   maps on the same frames against each other within a bf16 tolerance;
+   then a b=8 forward of each, its time per frame and launches;
+16. the card against the CPU in float32 at 192x256, as in phase 5, for
+   "pallas_v1" and "pallas_full".
 
-The line before the last is the kernel report as JSON (five kernels, at
-the shapes their training path gives them); the last line is
+The line before the last is the kernel report as JSON (seven kernels;
+K1, K2, K1-dot and K3 at the shapes their training path gives them, K4
+and K5 at hero b=8 inference); the last line is
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
 
@@ -87,12 +104,13 @@ from simplerecon_tpu_torch.models.matching_encoder import \
     ResnetMatchingEncoder  # noqa: E402
 from simplerecon_tpu_torch.online import \
     OnlineSession, make_batch  # noqa: E402
-from simplerecon_tpu_torch.ops import _build, cuda_cv, pool  # noqa: E402
+from simplerecon_tpu_torch.ops import (  # noqa: E402
+    _build, cuda_cv, early_sweeps, pool)
 from simplerecon_tpu_torch.parallel import train  # noqa: E402
 from simplerecon_tpu_torch.testing import (  # noqa: E402
     dot_case, dot_options, hero_options, pool_case, pool_cotangent,
-    posed_stream, relative_errors, spread_outputs_, sweep_case,
-    sweep_cotangent, train_batch)
+    posed_stream, relative_errors, spread_outputs_, stack_case, sweep_case,
+    sweep_cotangent, train_batch, warp_case)
 
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # K1 in bf16 against the float32 plain version, relative L2: bf16 rounds
@@ -147,10 +165,22 @@ POOL_BF16_REL = 2.0 ** -8
 # CUDA cores, HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+# the hero model's three sweeps against each other in bf16 (phase 15):
+# the relative L2 distance of the s0 log-depth maps to the spread of the
+# K1 map, and the share of pixels whose lowest-cost depth (an argmax over
+# the planes) agrees. The sweeps round at different points (K1 dots
+# unrounded samples, K5 rounded ones, K4 rounds its y-tap weights), each
+# by up to 2^-9 relative, and the bf16 encoder and decoder carry the
+# difference on: measured 4.6e-2 and 98.8% on an H100 80GB HBM3 at 700 W
+# (this phase's output). A wrong sweep is off by O(1).
+SWEEPS_L2_TOL = 0.1
+SWEEPS_LOWEST_AGREE = 0.9
 # each wrapper's launch counter, by the kernel's name in PERF.md
 COUNTERS = {"K1": cuda_cv.fused_sweep, "K2": cuda_cv.fused_sweep_bwd,
             "K1-dot": cuda_cv.dot_sweep, "K3-fwd": pool.max_blur_pool,
-            "K3-bwd": pool.max_blur_pool_bwd}
+            "K3-bwd": pool.max_blur_pool_bwd,
+            "K5": early_sweeps.fused_feature_volume,
+            "K4": early_sweeps.fused_warp_feature_volume}
 
 
 def reset_launches():
@@ -199,7 +229,8 @@ def phase_build():
     lib, seconds = _build.build()
     cuda_cv_lib = _build.load_library()
     for entry in ("fused_sweep_mlp", "fused_sweep_mlp_bwd", "fused_sweep_dot",
-                  "max_blur_pool_fwd", "max_blur_pool_bwd"):
+                  "max_blur_pool_fwd", "max_blur_pool_bwd",
+                  "fused_feature_volume", "fused_warp_feature_volume"):
         assert getattr(cuda_cv_lib, entry) is not None, entry
     print(f"[build] {lib.name}: nvcc {seconds:.2f} s")
     ptxas = lib.with_suffix(".ptxas.txt")
@@ -952,6 +983,162 @@ def phase_dot_infer(device) -> dict:
     return counts
 
 
+# K5 and K4 by name: (case maker, wrapper, plain version)
+EARLY_KERNELS = {
+    "K5": (stack_case, early_sweeps.fused_feature_volume,
+           early_sweeps.fused_feature_volume_reference),
+    "K4": (warp_case, early_sweeps.fused_warp_feature_volume,
+           early_sweeps.fused_warp_feature_volume_reference),
+}
+# the hero model's sweeps by cost_volume_backend: K1, the warp and K5, K4
+HERO_SWEEPS = ("pallas", "pallas_v1", "pallas_full")
+
+
+def early_sweep_work(name: str, shape, dtype) -> tuple:
+    """(operations, bytes) of one K5 or K4 call at `shape`: the MLP
+    products per (pixel, plane), as K1's, and each input read and the
+    output written once (K5: the stack, mask and depths; K4: the source
+    maps and projections; both: cur, rays, planes, pose rows and MLP)."""
+    b, k, h, w, c, d = shape
+    n, hid = h * w, cuda_cv.HIDDEN
+    cin = cuda_cv.mlp_in_channels(k, c)
+    cells = b * d * n
+    esize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = ((b * n * c + cin * hid + hid * hid + hid) * esize
+              + (b * n * 3 + b * d + 2 * b * k * 3 + 2 * hid + 1 + cells) * 4)
+    if name == "K5":
+        nbytes += k * cells * (c * esize + 2 * 4)
+    else:
+        nbytes += b * k * n * c * esize + b * k * 16 * 4
+    return 2 * (cin * hid + hid * hid + hid) * cells, nbytes
+
+
+def phase_early_kernels(device) -> dict:
+    """K5 and K4 against their plain versions: values, times, bounds."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    k, h, w, c, d = HERO_SWEEP
+    report = {}
+    fp32_bf16 = (torch.float32, torch.bfloat16)
+    for name, (make_case, kernel_fn, plain_fn) in EARLY_KERNELS.items():
+        # at b8, K5 runs once per chunk of planes: time one chunk
+        d8 = early_sweeps.stack_plane_chunk(8, k, h * w, c, d) \
+            if name == "K5" else d
+        for case, shape, dtypes in (
+                ("odd", (2, 3, 13, 21, 8, 5), fp32_bf16),
+                ("hero_b1", (1,) + HERO_SWEEP, fp32_bf16),
+                ("hero_b8", (8, k, h, w, c, d8), (torch.bfloat16,))):
+            for dtype in dtypes:
+                args = make_case(*shape, dtype=dtype, device=device, seed=1)
+                before = kernel_fn.launches
+                with torch.no_grad():
+                    got = kernel_fn(*args)
+                    want = plain_fn(*args)
+                torch.cuda.synchronize()
+                assert kernel_fn.launches == before + 1
+                b_, _, h_, w_, _, d_ = shape
+                assert got.shape == (b_, d_, h_ * w_), got.shape
+                assert torch.isfinite(got).all()
+                err = (got - want).abs().max().item()
+                tol = KERNEL_TOL[dtype] * max(1.0, want.abs().max().item())
+                with torch.no_grad():
+                    ms = cuda_ms(lambda: kernel_fn(*args), reps=20)
+                    plain_ms = cuda_ms(lambda: plain_fn(*args), reps=5)
+                flops, nbytes = early_sweep_work(name, shape, dtype)
+                bound, bound_by = work_bound(flops, nbytes, PEAK_FLOPS[dtype])
+                tag = f"{case}_{str(dtype).split('.')[-1]}"
+                print(f"[early_kernel] {name} {tag}: shape {shape} "
+                      f"max_abs_err {err:.3e} (tol {tol:.1e}) kernel "
+                      f"{ms:.3f} ms plain {plain_ms:.3f} ms; bound "
+                      f"{bound:.4f} ms by {bound_by} ({flops / 1e9:.2f} "
+                      f"GFLOP, {nbytes / 1e6:.1f} MB)")
+                assert err <= tol, (name, tag, err, tol)
+                report[(name, tag)] = dict(max_abs_err=err, ms=ms,
+                                           plain_ms=plain_ms,
+                                           bound=(bound, bound_by))
+                del args, got, want
+    return report
+
+
+def b8_batch(opts, device) -> tuple:
+    """(cur_data, src_data) of 8 reference frames, each with the 7
+    frames before it as sources."""
+    frames = posed_stream(15, opts.image_height, opts.image_width, seed=4)
+    n_src = opts.model_num_views - 1
+    parts = [make_batch(frames[i + n_src], frames[i:i + n_src],
+                        opts.matching_scale, device) for i in range(8)]
+    return tuple({key: torch.cat([part[j][key] for part in parts])
+                  for key in parts[0][j]} for j in (0, 1))
+
+
+def phase_early_serve(device) -> dict:
+    """The hero model served with each of its three sweeps, in turns, on
+    the same seeded weights; the sweeps' depth maps against each other;
+    a b8 forward of each. Returns the serving launches of K5 and K4."""
+    torch.cuda.empty_cache()
+    k, h, w, c, d = HERO_SWEEP
+    chunks = {b: d // early_sweeps.stack_plane_chunk(b, k, h * w, c, d)
+              for b in (1, 8)}
+
+    def expected(backend, forwards, b):
+        return {"pallas": {"K1": forwards},
+                "pallas_v1": {"K5": forwards * chunks[b]},
+                "pallas_full": {"K4": forwards}}[backend]
+
+    models, answers, served = {}, {}, {}
+    for backend in HERO_SWEEPS:
+        opts = hero_options(cost_volume_backend=backend)
+        models[backend] = spread_outputs_(
+            build_depth_model(opts, device=device, seed=0), seed=0)
+        assert models[backend].compute_dtype == torch.bfloat16
+        answers[backend], _, counts = serve(opts, models[backend],
+                                            f"early_serve {backend}")
+        assert_launches(counts, expected(backend, len(answers[backend]), 1))
+        served[backend] = counts
+    ref = answers["pallas"]
+    for backend in ("pallas_v1", "pallas_full"):
+        assert len(answers[backend]) == len(ref)
+        l2, agree, max_err = [], [], 0.0
+        for got, want in zip(answers[backend], ref):
+            x = got["log_depth_pred_s0_bhw1"]
+            y = want["log_depth_pred_s0_bhw1"]
+            l2.append(np.linalg.norm(x - y) / np.linalg.norm(y - y.mean()))
+            max_err = max(max_err, float(np.abs(x - y).max()))
+            agree.append(float(np.mean(got["lowest_cost_bhw"]
+                                       == want["lowest_cost_bhw"])))
+        std = float(np.std(ref[0]["log_depth_pred_s0_bhw1"]))
+        print(f"[early_serve] {backend} against pallas (K1), bf16, "
+              f"{len(ref)} answers: s0 log-depth L2-rel to its spread "
+              f"worst {max(l2):.3e} (tol {SWEEPS_L2_TOL:.0e}), max |diff| "
+              f"{max_err:.3e} (std {std:.3f}); lowest-cost depth agrees "
+              f"at {min(agree):.4f} of pixels (tol {SWEEPS_LOWEST_AGREE})")
+        assert max(l2) <= SWEEPS_L2_TOL, (backend, l2)
+        assert min(agree) >= SWEEPS_LOWEST_AGREE, (backend, agree)
+
+    cur, src = b8_batch(hero_options(), device)
+    reps = 3
+    for backend in HERO_SWEEPS:
+        model = models[backend]
+        with torch.no_grad():
+            model(cur, src, return_mask=True)   # warm-up
+            torch.cuda.synchronize()
+            reset_launches()
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                out = model(cur, src, return_mask=True)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        counts = launches()
+        assert_launches(counts, expected(backend, reps, 8))
+        assert torch.isfinite(out["depth_pred_s0_bhw1"]).all()
+        print(f"[early_serve] {backend} b8 bf16 forward: "
+              f"{statistics.median(times) / 8:.2f} ms per frame (median of "
+              f"{reps}: " + ", ".join(f"{t:.2f}" for t in times)
+              + f" ms per batch); launches {counts}")
+    return {"K5": served["pallas_v1"]["K5"], "K4": served["pallas_full"]["K4"]}
+
+
 def kernel_entry(name, source, replaces, launches_on_path, measured) -> dict:
     bound, bound_by = measured["bound"]
     return {"name": name, "route": "cuda", "source": source,
@@ -984,19 +1171,28 @@ def main():
     phase_card_vs_cpu(device, dot_small, "dot_card_vs_cpu")
     phase_train_card_vs_cpu(device, dot_small, DOT_COMPARED, 1,
                             "dot_train_card_vs_cpu", perturbed=False)
+    early_kernel = phase_early_kernels(device)
+    early_served = phase_early_serve(device)
+    for backend in ("pallas_v1", "pallas_full"):
+        phase_card_vs_cpu(
+            device, hero_options(image_height=192, image_width=256,
+                                 precision="32", cost_volume_backend=backend),
+            f"card_vs_cpu {backend}")
     loaded = [m for m in sys.modules if m in ("jax", "flax", "yaml", "PIL")
               or m == "simplerecon_tpu" or m.startswith("simplerecon_tpu.")]
     assert not loaded, f"the port pulled in {loaded}"
 
     # the training path's shapes: hero b16 for K1 and K2, the dot model's
-    # b16 for K1-dot, and its encoder's b16 stem for K3
+    # b16 for K1-dot, and its encoder's b16 stem for K3; K5 and K4 are
+    # inference-only: hero b8 (for K5 one of its two launches there)
     b16 = f"hero_b{TRAIN_BATCH}_bfloat16"
     stem = f"encoder_b{TRAIN_BATCH}_{str(pool_dtype).split('.')[-1]}"
     hero = (TRAIN_BATCH,) + HERO_SWEEP
     kernel[b16]["bound"] = bound_ms(hero, torch.bfloat16, backward=False)
     backward[b16]["bound"] = bound_ms(hero, torch.bfloat16, backward=True)
     hero_k, dot_k = trained["launches"], dot_trained["launches"]
-    print(f"[summary] inference: hero K1 {hero_infer}; dot K1-dot "
+    print(f"[summary] inference: hero K1 {hero_infer}, K5 "
+          f"{early_served['K5']}, K4 {early_served['K4']}; dot K1-dot "
           f"{dot_infer['K1-dot']}, K3-fwd {dot_infer['K3-fwd']}. training "
           f"steps: hero {hero_k}; dot {dot_k}. run so far "
           f"{time.perf_counter() - t_start:.1f} s")
@@ -1021,6 +1217,16 @@ def main():
                      "simplerecon_tpu_torch/csrc/max_blur_pool.cu",
                      "simplerecon_tpu/ops/pallas_pool.py:281",
                      dot_k["K3-bwd"], pool_kernel[stem]["bwd"]),
+        kernel_entry("fused_feature_volume",
+                     "simplerecon_tpu_torch/csrc/early_sweeps.cu",
+                     "simplerecon_tpu/ops/pallas_cv.py:151",
+                     early_served["K5"],
+                     early_kernel[("K5", "hero_b8_bfloat16")]),
+        kernel_entry("fused_warp_feature_volume",
+                     "simplerecon_tpu_torch/csrc/early_sweeps.cu",
+                     "simplerecon_tpu/ops/pallas_cv.py:664",
+                     early_served["K4"],
+                     early_kernel[("K4", "hero_b8_bfloat16")]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

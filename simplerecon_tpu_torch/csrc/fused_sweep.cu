@@ -17,17 +17,9 @@
 // is bound by FMA issue and the shared-memory reads that feed them.
 //
 // Design: one block per (pixel tile of 64, plane, batch element), one
-// thread per hidden channel (128 threads).
-//   1. The block assembles the tile's MLP inputs, rounded to the compute
-//      dtype, in shared memory as rows of 64 pixels (row stride 68 floats,
-//      so the float4 row writes of phase 3 do not collide in banks).
-//      202 rows * 272 B = 54.9 KB: dynamic shared memory above 48 KB.
-//   2. Thread j keeps the 64 pixels' sums for hidden channel j in
-//      registers. Each input row is read as float4 broadcasts from shared
-//      memory; the thread's weight w[i][j] is one coalesced load per row.
-//   3. The rounded activations overwrite the inputs in shared memory and
-//      feed the next layer; the last layer (128 -> 1) is a per-pixel dot
-//      over the shared activations.
+// thread per hidden channel (128 threads). The block assembles the tile's
+// MLP inputs, rounded to the compute dtype, in shared memory, then runs
+// the MLP there (`mlp_tail` of sweep_common.cuh, shared with K4 and K5).
 // Inputs: src (b,k,h,w,c), cur (b,N,c), w0 (C_in,128), w1 (128,128),
 // w2 (128,1) in the compute dtype T; proj = K @ src_T_cur (b,k,4,4),
 // invK (b,4,4), planes (b,d), pose_meta (b,k,3), src_loc (b,k,3) and the
@@ -60,30 +52,9 @@
 
 #include <cstdint>
 
+#include "sweep_common.cuh"
+
 namespace {
-
-constexpr int kHidden = 128;  // MLP width == threads per block
-constexpr int kTile = 64;     // pixels per block
-constexpr int kRow = 68;      // shared-memory row stride in floats
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// Rounds a float32 value to T (round to nearest even) and back.
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ float leaky_relu(float x) {
-  return x > 0.f ? x : 0.01f * x;
-}
 
 // Unnormalised ray invK @ (x + 0.5, y + 0.5, 1) of reference pixel pix.
 __device__ __forceinline__ float3 pixel_ray(const float* ik, int pix, int w) {
@@ -102,21 +73,17 @@ struct Taps {
   float mask;    // z_eps > 0
 };
 
-// Projects the reference-frame point (wx, wy, wz) with P = K @ src_T_cur
-// (row-major 4x4) and the eps-safe divide of ops/geometry.py::
-// project_points, then takes the bilinear taps at index coords
-// (u - 0.5, v - 0.5), zeros outside the image.
+// Projects the reference-frame point (wx, wy, wz) (`project`), then takes
+// the bilinear taps at index coords (u - 0.5, v - 0.5), zeros outside the
+// image.
 __device__ __forceinline__ Taps project_taps(const float* P, float wx,
                                              float wy, float wz, int h,
                                              int w) {
   Taps t;
-  const float cx = P[0] * wx + P[1] * wy + P[2] * wz + P[3];
-  const float cy = P[4] * wx + P[5] * wy + P[6] * wz + P[7];
-  const float cz = P[8] * wx + P[9] * wy + P[10] * wz + P[11];
-  t.z_eps = cz + 1e-8f;
-  const float scale = fabsf(cz) > 1e-8f ? 1.0f / t.z_eps : 1.0f;
-  const float u = cx * scale, v = cy * scale;
-  t.mask = t.z_eps > 0.f ? 1.f : 0.f;
+  const Projection q = project(P, wx, wy, wz);
+  t.z_eps = q.z_eps;
+  t.mask = q.mask;
+  const float u = q.u, v = q.v;
 
   const float ix = u - 0.5f, iy = v - 0.5f;
   const float x0 = floorf(ix), y0 = floorf(iy);
@@ -144,40 +111,6 @@ __device__ __forceinline__ float bilinear(const Taps& t, float nw, float ne,
   return t.wt[0] * nw + t.wt[1] * ne + t.wt[2] * sw + t.wt[3] * se;
 }
 
-// acc[p] += sum_i rows[i][p] * w[i*kHidden + j] for the tile's 64 pixels.
-template <typename T>
-__device__ __forceinline__ void dense_rows(const float* rows, int n_rows,
-                                           const T* __restrict__ wgt, int j,
-                                           float (&acc)[kTile]) {
-#pragma unroll 2
-  for (int i = 0; i < n_rows; ++i) {
-    const float wv = to_float(wgt[i * kHidden + j]);
-    const float4* row = reinterpret_cast<const float4*>(rows + i * kRow);
-#pragma unroll
-    for (int q = 0; q < kTile / 4; ++q) {
-      const float4 f = row[q];
-      acc[4 * q + 0] = fmaf(f.x, wv, acc[4 * q + 0]);
-      acc[4 * q + 1] = fmaf(f.y, wv, acc[4 * q + 1]);
-      acc[4 * q + 2] = fmaf(f.z, wv, acc[4 * q + 2]);
-      acc[4 * q + 3] = fmaf(f.w, wv, acc[4 * q + 3]);
-    }
-  }
-}
-
-// Writes thread j's 64 activations, rounded to T, as row j.
-template <typename T>
-__device__ __forceinline__ void store_row(float* rows, int j, float bias,
-                                          const float (&acc)[kTile]) {
-  float4* row = reinterpret_cast<float4*>(rows + j * kRow);
-#pragma unroll
-  for (int q = 0; q < kTile / 4; ++q) {
-    row[q] = make_float4(round_to<T>(leaky_relu(acc[4 * q + 0] + bias)),
-                         round_to<T>(leaky_relu(acc[4 * q + 1] + bias)),
-                         round_to<T>(leaky_relu(acc[4 * q + 2] + bias)),
-                         round_to<T>(leaky_relu(acc[4 * q + 3] + bias)));
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kHidden)
 fused_sweep_mlp_kernel(const T* __restrict__ src, const T* __restrict__ cur,
@@ -195,7 +128,7 @@ fused_sweep_mlp_kernel(const T* __restrict__ src, const T* __restrict__ cur,
   float* rows = reinterpret_cast<float*>(smem4);
 
   const int n = h * w;
-  const int cin = (k + 1) * c + 10 * k + 4;
+  const int cin = mlp_in_channels(k, c);
   const int meta = (k + 1) * c;  // first metadata row
   const int p0 = blockIdx.x * kTile;
   const int di = blockIdx.y;
@@ -211,12 +144,8 @@ fused_sweep_mlp_kernel(const T* __restrict__ src, const T* __restrict__ cur,
     const int view = item / kTile;
     const int pix = min(p0 + p, n - 1);  // ragged last tile: not stored
     const float3 ray = pixel_ray(ik, pix, w);
-    const float rx = ray.x, ry = ray.y, rz = ray.z;
-    const float wx = rx * plane, wy = ry * plane, wz = rz * plane;
-    const Taps t =
-        project_taps(proj + (bi * k + view) * 16, wx, wy, wz, h, w);
-    const float mask = t.mask;
-    const float z_eps = t.z_eps;
+    const Taps t = project_taps(proj + (bi * k + view) * 16, ray.x * plane,
+                                ray.y * plane, ray.z * plane, h, w);
 
     const T* img = src + (size_t)(bi * k + view) * n * c;
     const T* t_nw = img + (size_t)t.pix[0] * c;
@@ -232,70 +161,19 @@ fused_sweep_mlp_kernel(const T* __restrict__ src, const T* __restrict__ cur,
       rows[(view * c + ch) * kRow + p] = round_to<T>(s);
       dot = fmaf(s, to_float(cur_p[ch]), dot);
     }
-
-    // unit rays from the reference and the source camera centre
-    const float ref_inv = 1.0f / sqrtf(rx * rx + ry * ry + rz * rz + 1e-30f);
-    const float* loc = src_loc + (bi * k + view) * 3;
-    const float sx = wx - loc[0], sy = wy - loc[1], sz = wz - loc[2];
-    const float src_inv = 1.0f / sqrtf(sx * sx + sy * sy + sz * sz + 1e-30f);
-    const float angle =
-        (rx * ref_inv) * (sx * src_inv) + (ry * ref_inv) * (sy * src_inv) +
-        (rz * ref_inv) * (sz * src_inv);
-
-    rows[(meta + view) * kRow + p] = mask;
-    rows[(meta + k + view) * kRow + p] = round_to<T>(z_eps);
-    rows[(meta + 2 * k + 1 + view) * kRow + p] = round_to<T>(dot * mask);
-    rows[(meta + 3 * k + 1 + view) * kRow + p] = round_to<T>(angle);
-    const int sray = meta + 4 * k + 4 + 3 * view;
-    rows[(sray + 0) * kRow + p] = round_to<T>(sx * src_inv);
-    rows[(sray + 1) * kRow + p] = round_to<T>(sy * src_inv);
-    rows[(sray + 2) * kRow + p] = round_to<T>(sz * src_inv);
+    view_meta_rows<T>(rows, p, view, k, meta, t.mask, t.z_eps, dot, ray,
+                      plane, src_loc + (bi * k + view) * 3);
   }
   // Per-pixel rows: reference features, plane, reference ray, pose rows.
   for (int p = tid; p < kTile; p += kHidden) {
     const int pix = min(p0 + p, n - 1);
-    const T* cur_p = cur + ((size_t)bi * n + pix) * c;
-    for (int ch = 0; ch < c; ++ch) {
-      rows[(k * c + ch) * kRow + p] = to_float(cur_p[ch]);
-    }
-    const float3 ray = pixel_ray(ik, pix, w);
-    const float rx = ray.x, ry = ray.y, rz = ray.z;
-    const float ref_inv = 1.0f / sqrtf(rx * rx + ry * ry + rz * rz + 1e-30f);
-    rows[(meta + 2 * k) * kRow + p] = round_to<T>(plane);
-    rows[(meta + 4 * k + 1) * kRow + p] = round_to<T>(rx * ref_inv);
-    rows[(meta + 4 * k + 2) * kRow + p] = round_to<T>(ry * ref_inv);
-    rows[(meta + 4 * k + 3) * kRow + p] = round_to<T>(rz * ref_inv);
-    for (int jv = 0; jv < 3 * k; ++jv) {  // [penalty(k), R(k), t(k)]
-      const int j = jv / k, view = jv % k;
-      rows[(meta + 7 * k + 4 + jv) * kRow + p] =
-          round_to<T>(pose_meta[(bi * k + view) * 3 + j]);
-    }
+    pixel_meta_rows<T>(rows, p, k, c, meta, cur + ((size_t)bi * n + pix) * c,
+                       pixel_ray(ik, pix, w), plane, pose_meta + bi * k * 3);
   }
   __syncthreads();
 
-  // ---- 2. the MLP -------------------------------------------------------
-  float acc[kTile];
-#pragma unroll
-  for (int p = 0; p < kTile; ++p) acc[p] = 0.f;
-  dense_rows(rows, cin, w0, tid, acc);
-  __syncthreads();  // every thread has read the inputs
-  store_row<T>(rows, tid, b0[tid], acc);
-  __syncthreads();
-
-#pragma unroll
-  for (int p = 0; p < kTile; ++p) acc[p] = 0.f;
-  dense_rows(rows, kHidden, w1, tid, acc);
-  __syncthreads();
-  store_row<T>(rows, tid, b1[tid], acc);
-  __syncthreads();
-
-  if (tid < kTile && p0 + tid < n) {
-    float o = 0.f;
-    for (int j = 0; j < kHidden; ++j) {
-      o = fmaf(rows[j * kRow + tid], to_float(w2[j]), o);
-    }
-    out[((size_t)bi * d + di) * n + p0 + tid] = o + b2[0];
-  }
+  mlp_tail<T>(rows, cin, w0, b0, w1, b1, w2, b2,
+              out + ((size_t)bi * d + di) * n + p0, n - p0);
 }
 
 template <typename T>
@@ -305,9 +183,7 @@ int launch(const void* src, const void* cur, const void* proj,
            const void* w1, const void* b1, const void* w2, const void* b2,
            void* out, int b, int k, int h, int w, int c, int d,
            cudaStream_t stream) {
-  const int cin = (k + 1) * c + 10 * k + 4;
-  const int n_rows = cin > kHidden ? cin : kHidden;
-  const size_t smem = (size_t)n_rows * kRow * sizeof(float);
+  const size_t smem = tail_smem_bytes(mlp_in_channels(k, c));
   cudaError_t err = cudaFuncSetAttribute(
       fused_sweep_mlp_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

@@ -33,16 +33,16 @@ from simplerecon_tpu_torch.models.efficientnet import EfficientNetV2Features
 from simplerecon_tpu_torch.models.matching_encoder import \
     ResnetMatchingEncoder
 
-# cost_volume_backend values of the JAX package that all select the port's
-# one sweep path of each model (the fused sweep kernel K1 for the hero
-# model, its dot mode K1-dot for the dot-product model), and those that
-# wait for a kernel
-SWEEP_BACKENDS = ("pallas", "pallas_interpret", "xla", "xla_fused")
-UNPORTED_BACKENDS = {
-    "pallas_full": "K4 (ROADMAP Queue 2, item 6)",
-    "pallas_full_interpret": "K4 (ROADMAP Queue 2, item 6)",
-    "pallas_v1": "K5 (ROADMAP Queue 2, item 5)",
-    "pallas_v1_interpret": "K5 (ROADMAP Queue 2, item 5)",
+# cost_volume_backend values of the JAX package and the hero model's sweep
+# each selects in the port: the fused sweep kernel K1 (with K2 as its
+# backward) for the JAX package's "pallas" and XLA backends, the plain warp
+# and K5 for "pallas_v1", K4 for "pallas_full" (both inference-only). The
+# dot-product model runs K1-dot for every one of them.
+HERO_SWEEPS = {
+    "pallas": "fused_sweep", "pallas_interpret": "fused_sweep",
+    "xla": "fused_sweep", "xla_fused": "fused_sweep",
+    "pallas_v1": "pallas_v1", "pallas_v1_interpret": "pallas_v1",
+    "pallas_full": "pallas_full", "pallas_full_interpret": "pallas_full",
 }
 
 
@@ -62,7 +62,8 @@ FEATURE_VOLUME_TYPES = ("mlp_feature_volume", "simple_cost_volume")
 
 class DepthModel(nn.Module):
     """SimpleRecon depth network: the hero model
-    (`feature_volume_type="mlp_feature_volume"`) or the dot-product model
+    (`feature_volume_type="mlp_feature_volume"`, its feature volume's
+    backend `hero_sweep`) or the dot-product model
     ("simple_cost_volume")."""
 
     def __init__(self, matching_scale: int = 1,
@@ -74,7 +75,8 @@ class DepthModel(nn.Module):
                  matching_pool_impl: str = "reference",
                  model_num_views: int = 8,
                  feature_volume_type: str = "mlp_feature_volume",
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 hero_sweep: str = "fused_sweep"):
         super().__init__()
         if feature_volume_type not in FEATURE_VOLUME_TYPES:
             raise ValueError(
@@ -98,7 +100,7 @@ class DepthModel(nn.Module):
                 min_depth=min_matching_depth, max_depth=max_matching_depth,
                 matching_dim_size=matching_feature_dims,
                 num_source_views=model_num_views - 1,
-                compute_dtype=compute_dtype)
+                compute_dtype=compute_dtype, backend=hero_sweep)
         enc_ch = self.encoder.num_ch_enc
         m = matching_scale
         self.cost_volume_net = CVEncoder(
@@ -206,11 +208,11 @@ def build_depth_model(opts, device=None, seed: int = 0) -> DepthModel:
     with `seed`, on `device`: the CUDA card unless another device is
     given (raises when there is no card).
 
-    The JAX package's sweep backends `pallas`, `pallas_interpret`, `xla`
-    and `xla_fused`, with or without `fast_cost_volume`, all select the
-    port's one path of each model: the fused sweep kernel K1 for the hero
-    model, its dot mode K1-dot for the dot-product model. `pallas_full`
-    and `pallas_v1` raise until their kernels are ported.
+    `cost_volume_backend` picks the hero model's sweep (`HERO_SWEEPS`),
+    with or without `fast_cost_volume`: `pallas`, `pallas_interpret`,
+    `xla` and `xla_fused` the fused sweep kernel K1, `pallas_v1` and
+    `pallas_full` (and their `_interpret` forms) the inference-only K5
+    and K4. The dot-product model runs K1-dot for each of them.
     """
     from simplerecon_tpu_torch.utils.weights import init_random_
 
@@ -219,11 +221,7 @@ def build_depth_model(opts, device=None, seed: int = 0) -> DepthModel:
             f"matching_encoder_type={opts.matching_encoder_type!r} is not "
             "ported (ROADMAP Queue 1, item 12)")
     backend = getattr(opts, "cost_volume_backend", "xla_fused")
-    if backend in UNPORTED_BACKENDS:
-        raise NotImplementedError(
-            f"cost_volume_backend={backend!r} is kernel "
-            f"{UNPORTED_BACKENDS[backend]}, not ported yet")
-    if backend not in SWEEP_BACKENDS:
+    if backend not in HERO_SWEEPS:
         raise ValueError(f"unknown cost_volume_backend {backend!r}")
     device = resolve_device(device)
     model = DepthModel(
@@ -236,6 +234,6 @@ def build_depth_model(opts, device=None, seed: int = 0) -> DepthModel:
         matching_pool_impl=getattr(opts, "matching_pool_impl", "reference"),
         model_num_views=opts.model_num_views,
         feature_volume_type=opts.feature_volume_type,
-        compute_dtype=_compute_dtype(opts))
+        compute_dtype=_compute_dtype(opts), hero_sweep=HERO_SWEEPS[backend])
     init_random_(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

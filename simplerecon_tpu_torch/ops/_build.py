@@ -108,6 +108,11 @@ def load_library() -> ctypes.CDLL:
     lib.fused_sweep_mlp_bwd.restype = ci
     lib.fused_sweep_dot.argtypes = [ci] + [vp] * 6 + [ci] * 6 + [vp]
     lib.fused_sweep_dot.restype = ci
+    lib.fused_feature_volume.argtypes = [ci] + [vp] * 15 + [ci] * 5 + [vp]
+    lib.fused_feature_volume.restype = ci
+    lib.fused_warp_feature_volume.argtypes = ([ci] + [vp] * 14 + [ci] * 6
+                                              + [vp])
+    lib.fused_warp_feature_volume.restype = ci
     ll = ctypes.c_longlong
     lib.max_blur_pool_fwd.argtypes = [ci, vp, vp, ll, ci, ci, vp]
     lib.max_blur_pool_fwd.restype = ci

@@ -29,6 +29,13 @@ def generate_depth_planes(batch_size: int, num_depth_bins: int,
     return planes[None].expand(batch_size, num_depth_bins)
 
 
+def pixel_rays(invK_b44: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(b, h*w, 3) float32 unnormalised rays invK @ (x + 0.5, y + 0.5, 1)
+    of the reference pixels: the plane point at depth z is ray * z."""
+    grid_N3 = geo.pixel_grid(h, w, device=invK_b44.device)
+    return grid_N3 @ invK_b44[:, :3, :3].to(torch.float32).transpose(1, 2)
+
+
 class SweepWarp(NamedTuple):
     """Per-plane warp products for one chunk of depth planes."""
     world_points_bdN3: torch.Tensor   # reference-camera-frame points, fp32
@@ -54,8 +61,7 @@ def sweep_warp(src_feats_bkhwc: torch.Tensor,
     n = h * w
     f32 = torch.float32
 
-    grid_N3 = geo.pixel_grid(h, w, device=src_feats_bkhwc.device)
-    rays_bN3 = grid_N3 @ cur_invK_b44[:, :3, :3].to(f32).transpose(1, 2)
+    rays_bN3 = pixel_rays(cur_invK_b44, h, w)
     world_bdN3 = rays_bN3[:, None] * depth_planes_bd[..., None, None]
 
     uvz_bkdN3 = geo.project_points(

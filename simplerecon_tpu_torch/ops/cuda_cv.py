@@ -117,17 +117,25 @@ def fused_sweep_reference(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44,
     channel input and each hidden activation are rounded before the next
     product, and every product and sum is float32. Returns (b, d, N).
     """
-    cdt = w0.dtype
-    w0f, w1f, w2f = (_round(x.float(), cdt) for x in (w0, w1, w2))
-    b0f, b1f, b2f = (x.float() for x in (b0, b1, b2))
     chunks = []
     for _, feats, _ in _chunks(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44,
                                src_Ks_bk44, cur_invK_b44, depth_planes_bd,
-                               pose_meta_bk3, src_loc_bk3, cdt):
-        h0 = _round(F.leaky_relu(_round(feats, cdt) @ w0f + b0f, 0.01), cdt)
-        h1 = _round(F.leaky_relu(h0 @ w1f + b1f, 0.01), cdt)
-        chunks.append((h1 @ w2f + b2f)[..., 0])
+                               pose_meta_bk3, src_loc_bk3, w0.dtype):
+        chunks.append(mlp_reference(feats, w0, b0, w1, b1, w2, b2))
     return torch.cat(chunks, dim=1)
+
+
+def mlp_reference(feats, w0, b0, w1, b1, w2, b2) -> torch.Tensor:
+    """The MLP C_in -> 128 -> 128 -> 1 with LeakyReLU(0.01) over float32
+    inputs (..., C_in), as the kernels run it: the input and each hidden
+    activation are rounded to the compute dtype (`w0.dtype`) before the
+    next product; products and sums are float32. Returns (...)."""
+    cdt = w0.dtype
+    w0f, w1f, w2f = (_round(x.float(), cdt) for x in (w0, w1, w2))
+    h0 = _round(F.leaky_relu(_round(feats, cdt) @ w0f + b0.float(), 0.01),
+                cdt)
+    h1 = _round(F.leaky_relu(h0 @ w1f + b1.float(), 0.01), cdt)
+    return (h1 @ w2f + b2.float())[..., 0]
 
 
 def fused_sweep_backward_reference(src_feats_bkhwc, cur_bNc,
@@ -254,8 +262,16 @@ def check_args(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44, src_Ks_bk44,
     b, k, h, w, c, d = check_dot_args(
         src_feats_bkhwc, cur_bNc, src_extrinsics_bk44, src_Ks_bk44,
         cur_invK_b44, depth_planes_bd)
-    device = src_feats_bkhwc.device
-    cdt = src_feats_bkhwc.dtype
+    check_meta_args(pose_meta_bk3, src_loc_bk3, w0, b0, w1, b1, w2, b2,
+                    b, k, c, src_feats_bkhwc.dtype, src_feats_bkhwc.device)
+    return b, k, h, w, c, d
+
+
+def check_meta_args(pose_meta_bk3, src_loc_bk3, w0, b0, w1, b1, w2, b2,
+                    b: int, k: int, c: int, cdt, device):
+    """Raises on any pose or MLP argument that K1, K4 and K5 do not take:
+    float32 pose metadata and camera centres, weights (in, out) in the
+    compute dtype `cdt`, float32 biases, all contiguous on `device`."""
     cin = mlp_in_channels(k, c)
     f32 = torch.float32
     check = _build.check
@@ -267,7 +283,6 @@ def check_args(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44, src_Ks_bk44,
     check("b1", b1, f32, (HIDDEN,), device)
     check("w2", w2, cdt, (HIDDEN, 1), device)
     check("b2", b2, f32, (1,), device)
-    return b, k, h, w, c, d
 
 
 def fused_sweep(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44, src_Ks_bk44,

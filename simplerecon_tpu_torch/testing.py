@@ -1,5 +1,6 @@
 """Seeded synthetic inputs and settings for checking the port: the
-arguments of the fused and dot-product sweeps and of the stem pool, a
+arguments of the fused and dot-product sweeps, of K5 and K4 and of the
+stem pool, a
 posed frame stream, a training batch, the hero and dot-product models'
 options, and a weight perturbation that gives random-init outputs some
 spread.
@@ -17,6 +18,7 @@ import torch
 import torch.nn as nn
 
 from simplerecon_tpu_torch.ops import cost_volume as cv_ops
+from simplerecon_tpu_torch.ops import early_sweeps
 from simplerecon_tpu_torch.ops import geometry as geo
 from simplerecon_tpu_torch.ops.cuda_cv import HIDDEN, mlp_in_channels
 from simplerecon_tpu_torch.parallel.train import make_example_batch
@@ -119,6 +121,31 @@ def dot_case(b: int, k: int, h: int, w: int, c: int, d: int,
     """Arguments of `dot_sweep`, in order: `sweep_case`'s features and
     geometry."""
     return sweep_case(b, k, h, w, c, d, dtype, device, seed)[:6]
+
+
+def stack_case(b: int, k: int, h: int, w: int, c: int, d: int,
+               dtype: torch.dtype, device, seed: int = 0) -> list:
+    """Arguments of `fused_feature_volume` (K5), in order: `sweep_case`'s
+    features, geometry and MLP, with the stack, mask and depths warped by
+    `early_sweeps.stack_inputs` (sampled in float32, the stack in
+    `dtype`) and the reference pixels' rays."""
+    src, cur, extr, Ks, invK, planes, *rest = sweep_case(
+        b, k, h, w, c, d, dtype, device, seed)
+    stack = early_sweeps.stack_inputs(src, extr, Ks, invK, planes, dtype)
+    rays = cv_ops.pixel_rays(invK, h, w).contiguous()
+    return [*stack, cur, rays, planes, *rest]
+
+
+def warp_case(b: int, k: int, h: int, w: int, c: int, d: int,
+              dtype: torch.dtype, device, seed: int = 0) -> list:
+    """Arguments of `fused_warp_feature_volume` (K4), in order, from
+    `sweep_case`'s: the c-major maps and projections of
+    `early_sweeps.warp_inputs`, and the reference pixels' rays."""
+    src, cur, extr, Ks, invK, planes, *rest = sweep_case(
+        b, k, h, w, c, d, dtype, device, seed)
+    img, proj = early_sweeps.warp_inputs(src, extr, Ks, dtype)
+    rays = cv_ops.pixel_rays(invK, h, w).contiguous()
+    return [img, cur, rays, planes, proj, *rest]
 
 
 def pool_case(shape, dtype: torch.dtype, device, seed: int = 0

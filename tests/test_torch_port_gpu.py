@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the fused sweep (K1 forward, K2 backward), the dot-product sweep
-(K1-dot) and the stem pool (K3 forward and backward). Marked `gpu`;
+(K1-dot), the stem pool (K3 forward and backward) and the hero model's
+inference-only sweeps (K5 over a warped stack, K4 the full-width fused
+warp). Marked `gpu`;
 skipped where there is no CUDA device. Run on the H100 with
 `python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py`.
 
@@ -30,6 +32,10 @@ and in bf16. Neither version rounds inside: both sample bf16 maps in
 float32 and dot in float32, so the two differ only by the order of the
 sums and by tap coordinates that round differently.
 
+K5 and K4: as K1 (the same MLP, summed in another order, behind inputs
+rounded at the same points), 1e-4 in float32 and 1e-2 in bf16, times
+max(1, max |plain|).
+
 K3, float32: max |kernel - plain| <= 1e-5 * max(1, max |plain|) for the
 output and for dx (the same sums of at most 36 positive-weight terms in
 another order). bf16: the kernel sums in float32 and rounds once, so
@@ -43,10 +49,11 @@ first maximum of each 2x2 window, ties included).
 import pytest
 import torch
 
-from simplerecon_tpu_torch.ops import cuda_cv, pool
+from simplerecon_tpu_torch.ops import cuda_cv, early_sweeps, pool
 from simplerecon_tpu_torch.testing import (dot_case, pool_case,
                                            pool_cotangent, relative_errors,
-                                           sweep_case, sweep_cotangent)
+                                           stack_case, sweep_case,
+                                           sweep_cotangent, warp_case)
 
 pytestmark = pytest.mark.gpu
 
@@ -240,3 +247,70 @@ def test_new_wrappers_reject_what_their_kernels_do_not_take(cuda):
         args[0].shape).copy_(args[0])
     with pytest.raises(ValueError, match="16-byte"):
         cuda_cv.dot_sweep(*shifted)
+
+
+EARLY_KERNELS = {
+    "K5": (stack_case, early_sweeps.fused_feature_volume,
+           early_sweeps.fused_feature_volume_reference),
+    "K4": (warp_case, early_sweeps.fused_warp_feature_volume,
+           early_sweeps.fused_warp_feature_volume_reference),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 3, 13, 21, 8, 5),
+                                   (1, 7, 96, 128, 16, 64)],
+                         ids=["odd", "hero"])
+@pytest.mark.parametrize("kernel", ["K5", "K4"])
+def test_early_kernels_match_plain_versions(cuda, kernel, dtype, shape):
+    make_case, kernel_fn, plain_fn = EARLY_KERNELS[kernel]
+    args = make_case(*shape, dtype=dtype, device=cuda, seed=1)
+    before = kernel_fn.launches
+    with torch.no_grad():
+        got = kernel_fn(*args)
+        want = plain_fn(*args)
+    torch.cuda.synchronize()
+    assert kernel_fn.launches == before + 1
+    b, k, h, w, c, d = shape
+    assert got.shape == (b, d, h * w) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= TOL[dtype] * max(1.0, want.abs().max().item()), err
+
+
+def test_early_kernel_wrappers_reject_what_they_do_not_take(cuda):
+    stack = stack_case(1, 2, 8, 8, 8, 3, dtype=torch.float32, device=cuda)
+    bad = list(stack)
+    bad[3] = stack[3].to(torch.bfloat16)            # cur in another dtype
+    with pytest.raises(TypeError):
+        early_sweeps.fused_feature_volume(*bad)
+    bad = list(stack)
+    bad[1] = stack[1].t().contiguous().t()         # mask not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        early_sweeps.fused_feature_volume(*bad)
+    bad = list(stack)
+    bad[4] = stack[4].cpu()                         # rays on the host
+    with pytest.raises(ValueError, match="cpu"):
+        early_sweeps.fused_feature_volume(*bad)
+    narrow = stack_case(1, 2, 8, 8, 4, 3, dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="vectors of 8"):
+        early_sweeps.fused_feature_volume(*narrow)
+    bad = list(stack)
+    bad[0] = torch.empty(stack[0].numel() + 1, device=cuda)[1:].view(
+        stack[0].shape).copy_(stack[0])            # off a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        early_sweeps.fused_feature_volume(*bad)
+
+    warp = warp_case(1, 2, 8, 8, 4, 3, dtype=torch.float32, device=cuda)
+    bad = list(warp)
+    bad[0] = warp[0][..., :-1].contiguous()         # not c * w per row
+    with pytest.raises(ValueError, match="pixels"):
+        early_sweeps.fused_warp_feature_volume(*bad)
+    bad = list(warp)
+    bad[7] = warp[7].to(torch.bfloat16)             # w0 in another dtype
+    with pytest.raises(TypeError):
+        early_sweeps.fused_warp_feature_volume(*bad)
+    before = early_sweeps.fused_warp_feature_volume.launches
+    early_sweeps.fused_warp_feature_volume(*warp)
+    assert early_sweeps.fused_warp_feature_volume.launches == before + 1

@@ -3,11 +3,14 @@ bridge round trip, on the CPU in float32.
 
 Both packages run the forward, with and without flip, at 64x96 with
 k=2 source views and d=8 planes, on the same numpy inputs and the same
-weights: a JAX init, with BatchNorm statistics redrawn from a seed and
-the four output heads scaled by HEAD_SCALE, bridged into the port. JAX
-uses its Pallas sweep kernel in interpret mode; the port uses its plain
-sweep. `lowest_cost` is an argmax over planes, so it must agree to 1e-5
-at 99% of pixels (a near-tie may flip).
+weights: the port's seeded init with its batch norms redrawn and its
+four output heads scaled by 2 (`testing.spread_outputs_`), carried into
+the JAX tree by the JAX package's own `convert_state_dict` and bridged
+back into the port. JAX uses its Pallas sweep kernel (K1's) in interpret
+mode; the port uses the plain version of its sweep, for each of the hero
+model's three backends: the fused sweep (K1), "pallas_v1" (warp, then
+K5) and "pallas_full" (K4). `lowest_cost` is an argmax over planes, so
+it must agree to 1e-5 at 99% of pixels (a near-tie may flip).
 
 Tolerance: for the cost volume and each of the 4 log-depth maps,
 max |torch - jax| <= 2% of the reference map's standard deviation. At
@@ -25,15 +28,17 @@ import torch
 from simplerecon_tpu.models.depth_model import DepthModel as JaxDepthModel
 from simplerecon_tpu.utils.convert_reference_checkpoint import \
     convert_state_dict
-from simplerecon_tpu_torch.models.depth_model import DepthModel
+from simplerecon_tpu_torch.models.depth_model import (DepthModel,
+                                                      build_depth_model)
+from simplerecon_tpu_torch.testing import hero_options, spread_outputs_
 from simplerecon_tpu_torch.utils.weights import (jax_to_state_dict,
                                                  load_jax_variables)
-from test_torch_port_modules import randomize_bn
 from test_torch_port_ops import few_torch_threads  # noqa: F401 (autouse)
 from test_torch_port_ops import sweep_geometry
 
 B, K_SRC, H, W, D = 1, 2, 64, 96, 8
-HEAD_SCALE = 2.0
+OPTS = hero_options(image_height=H, image_width=W, matching_num_depth_bins=D,
+                    model_num_views=K_SRC + 1, precision="32")
 SIGNAL_FRACTION = 0.02
 MIN_STD = 1e-2
 
@@ -60,19 +65,16 @@ def make_inputs():
 def jax_run():
     """JAX variables (numpy) and outputs of one forward."""
     cur, src = make_inputs()
+    base = spread_outputs_(build_depth_model(OPTS, device="cpu", seed=12),
+                           seed=12)
+    params, stats, _ = convert_state_dict(
+        {k: v.numpy() for k, v in base.state_dict().items()})
+    variables = {"params": params, "batch_stats": stats}
     model = JaxDepthModel(image_height=H, image_width=W,
                           matching_num_depth_bins=D, model_num_views=K_SRC + 1,
                           cost_volume_backend="pallas_interpret",
                           dtype=jnp.float32)
     with jax.default_matmul_precision("highest"):
-        init = jax.jit(lambda c, s: model.init(
-            jax.random.PRNGKey(0), c, s, flip=False, train=False))
-        variables = randomize_bn(init(cur, src), seed=12)
-        dec = variables["params"]["depth_decoder"]
-        for i in range(4):
-            for leaf in ("kernel", "bias"):
-                dec[f"output_{i}_conv"][leaf] *= HEAD_SCALE
-
         # one compiled forward serves both flips (a traced bool); the cost
         # volume is captured as an intermediate
         forward = jax.jit(lambda v, c, s, flip: model.apply(
@@ -117,11 +119,23 @@ def test_bridge_round_trips_through_convert_state_dict(jax_run):
 
 @pytest.mark.parametrize("flip", [False, True], ids=["plain", "flip"])
 def test_depth_model_matches_jax(jax_run, flip):
+    assert_matches_jax(jax_run, flip, "fused_sweep")
+
+
+@pytest.mark.parametrize("flip", [False, True], ids=["plain", "flip"])
+@pytest.mark.parametrize("backend", ["pallas_v1", "pallas_full"])
+def test_early_sweep_models_match_jax(jax_run, backend, flip):
+    assert_matches_jax(jax_run, flip, backend)
+
+
+def assert_matches_jax(jax_run, flip, backend):
+    """The port's forward with the hero sweep `backend` against the JAX
+    forward (K1 in interpret mode) on the same weights and inputs."""
     variables, cur, src, outputs = jax_run
     want = outputs[flip]
     model = load_jax_variables(
-        DepthModel(matching_num_depth_bins=D, model_num_views=K_SRC + 1),
-        variables).eval()
+        DepthModel(matching_num_depth_bins=D, model_num_views=K_SRC + 1,
+                   hero_sweep=backend), variables).eval()
 
     captured = {}
     model.cost_volume.register_forward_hook(

@@ -1,10 +1,13 @@
 """The port's network modules against their JAX counterparts, on the CPU
-in float32, with weights bridged from the JAX init.
+in float32, with the same variables in both.
 
-Each JAX module is initialised, its BatchNorm scales, biases and running
-statistics are redrawn from a seed (so a wrong mean/var mapping shows),
-and the same variables are bridged into the port module through
-`utils/weights.py`. Inputs are numpy arrays from a seed.
+Each JAX module's variables are drawn with numpy from a seed, at the
+shapes its init gives (`jax.eval_shape`, so no init is compiled): kernels
+normal with variance 1/fan_in, as flax's default init, biases N(0, 0.05^2)
+so that a wrong bias mapping shows, and every BatchNorm's scale, bias and
+running statistics redrawn (so a wrong mean/var mapping shows). The same
+variables are bridged into the port module through `utils/weights.py`.
+Inputs are numpy arrays from a seed.
 
 Tolerance: max |torch - jax| <= 1e-4 * (1 + max |jax|) for every output,
 i.e. float32 rounding accumulated over the module's convolutions, which
@@ -78,11 +81,33 @@ def nchw(x):
     return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
 
 
+def random_variables(module, inputs, seed):
+    """numpy variables of `module` at the shapes its init gives for
+    `inputs`, drawn from `seed`, with its BatchNorms redrawn."""
+    shapes = jax.eval_shape(lambda *x: module.init(
+        jax.random.PRNGKey(seed), *x, train=False), *inputs)
+    rng = np.random.RandomState(seed)
+
+    def draw(path, leaf):
+        name, shape = path[-1].key, leaf.shape
+        if name == "kernel":
+            x = rng.randn(*shape) / np.sqrt(np.prod(shape[:-1]))
+        elif name == "bias":
+            x = 0.05 * rng.randn(*shape)
+        elif name in ("scale", "var"):
+            x = np.ones(shape)
+        elif name == "mean":
+            x = np.zeros(shape)
+        else:
+            raise KeyError(name)
+        return x.astype(np.float32)
+
+    return randomize_bn(jax.tree_util.tree_map_with_path(draw, shapes), seed)
+
+
 def apply_jax(module, inputs, seed):
+    variables = random_variables(module, inputs, seed)
     with jax.default_matmul_precision("highest"):
-        variables = jax.jit(lambda *x: module.init(
-            jax.random.PRNGKey(seed), *x, train=False))(*inputs)
-        variables = randomize_bn(variables, seed)
         out = jax.jit(lambda v, *x: module.apply(v, *x, train=False))(
             variables, *inputs)
     return variables, out

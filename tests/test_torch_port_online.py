@@ -203,13 +203,26 @@ def test_port_imports_no_jax_flax_yaml_or_pil():
 
 @pytest.mark.parametrize("override", [
     {"matching_norm": "group"},
-    {"cost_volume_backend": "pallas_full"},
-    {"cost_volume_backend": "pallas_v1"},
     {"matching_encoder_type": "unet_encoder"},
 ], ids=lambda o: "-".join(map(str, o.values())))
 def test_unported_options_raise(override):
     with pytest.raises(NotImplementedError):
         build_depth_model(tiny_opts(**override), device="cpu")
+
+
+@pytest.mark.parametrize("backend", ["pallas_full", "pallas_v1"])
+def test_inference_only_backends_build_and_answer(backend):
+    """The hero model with the sweep of K4 ("pallas_full") or of the
+    warp and K5 ("pallas_v1") answers keyframes on the CPU."""
+    opts = tiny_opts(cost_volume_backend=backend)
+    model = build_depth_model(opts, device="cpu", seed=3)
+    assert model.cost_volume.backend == backend
+    session = OnlineSession(opts, model)
+    answers = [out for out in map(session.process_frame, posed_stream(3))
+               if out is not None]
+    assert len(answers) == 1
+    depth = answers[0]["depth_pred_s0_bhw1"]
+    assert depth.shape == (1, H // 2, W // 2, 1) and np.isfinite(depth).all()
 
 
 def test_sweep_backends_select_the_one_path():
@@ -218,15 +231,16 @@ def test_sweep_backends_select_the_one_path():
                                             fast_cost_volume=True),
                                   device="cpu")
         assert type(model.cost_volume).__name__ == "MLPFeatureVolume"
+        assert model.cost_volume.backend == "fused_sweep"
 
 
 @pytest.mark.parametrize("backend", ["pallas", "pallas_interpret", "xla",
-                                     "xla_fused"])
+                                     "xla_fused", "pallas_v1", "pallas_full"])
 def test_dot_model_and_fused_pool_build_for_every_sweep_backend(backend):
     """The dot-product model with the fused stem pool (K3) builds on the
-    CPU from every backend that selects the port's one sweep path: the
-    cost volume has no parameters and hands the CV encoder one channel
-    per plane."""
+    CPU from every sweep backend, each of which selects its one sweep
+    (K1-dot): the cost volume has no parameters and hands the CV encoder
+    one channel per plane."""
     opts = tiny_opts(feature_volume_type="simple_cost_volume",
                      matching_pool_impl="pallas", cost_volume_backend=backend,
                      fast_cost_volume=True)

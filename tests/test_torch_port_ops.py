@@ -243,12 +243,17 @@ def test_mlp_feature_volume_matches_jax():
     jmod = JaxMLPFeatureVolume(num_depth_bins=d, num_source_views=k,
                                matching_dim_size=c,
                                backend="pallas_interpret", dtype=jnp.float32)
+    # the module's only parameters, its MLP's three layers, drawn as
+    # flax's default init draws them (no init is traced or compiled)
+    widths = (cuda_cv.mlp_in_channels(k, c), 128, 128, 1)
+    params = {"mlp": {f"dense{i}": {
+        "kernel": (rng.randn(widths[i], widths[i + 1])
+                   / np.sqrt(widths[i])).astype(np.float32),
+        "bias": np.zeros(widths[i + 1], np.float32)} for i in range(3)}}
     with jax.default_matmul_precision("highest"):
-        variables = jmod.init(jax.random.PRNGKey(0), cur, src, extr, poses,
-                              Ks, invK)
-        params = jax.tree_util.tree_map(np.asarray, variables["params"])
-        want = jmod.apply({"params": params}, cur, src, extr, poses, Ks,
-                          invK, return_mask=True)
+        want = jax.jit(lambda *a: jmod.apply(
+            {"params": params}, *a, return_mask=True))(
+                cur, src, extr, poses, Ks, invK)
 
     tmod = MLPFeatureVolume(num_depth_bins=d, num_source_views=k,
                             matching_dim_size=c)
