@@ -10,8 +10,9 @@ non-zero, and only a run that passes them all prints the last line:
 3. the fused sweep kernel against its plain PyTorch version at the hero
    shape (b=1, k=7, 96x128, c=16, d=64) and at a small odd shape, in
    float32 (TF32 off) and bf16, and at hero b=8 and b=16 (the training
-   step's batch) in bf16, with CUDA-event times of both; bf16 is also
-   held against the float32 plain version;
+   step's batch) in bf16, with CUDA-event times of both and the
+   kernel's TFLOP/s and share of its bound; bf16 is also held against
+   the float32 plain version;
 4. the hero model (384x512, 8 views, 64 planes, bf16, seeded random
    weights) through `OnlineSession` over a 12-frame posed stream: outputs
    finite and of the right shapes, one kernel launch per answered frame,
@@ -21,8 +22,9 @@ non-zero, and only a run that passes them all prints the last line:
 6. the sweep's backward kernel (K2) against its plain PyTorch version at
    the hero shape (b=1) and the small odd shape, in float32 (TF32 off)
    and bf16, and at hero b=16 in bf16; bf16 judged against both the
-   float32 and the bf16 plain backward; CUDA-event times of both and the
-   run-to-run difference of d_src;
+   float32 and the bf16 plain backward; CUDA-event times of both, the
+   kernel's TFLOP/s and share of its bound, and the run-to-run
+   difference of d_src;
 7. hero training on the card: 384x512, 8 views, 64 planes, bf16, batch
    16, one fixed seeded batch; 3 warm-up and 5 timed steps through
    `parallel/train.py::train_step`: losses and gradient norms finite,
@@ -272,9 +274,11 @@ def phase_kernel(device) -> dict:
                 plain_ms = cuda_ms(
                     lambda: cuda_cv.fused_sweep_reference(*args), reps=5)
             tag = f"{name}_{str(dtype).split('.')[-1]}"
+            bound = bound_ms(shape, dtype, backward=False)
             print(f"[kernel] {tag}: shape {shape} max_abs_err {err:.3e} "
                   f"(tol {tol:.1e}) kernel {ms:.3f} ms "
-                  f"plain {plain_ms:.3f} ms")
+                  f"plain {plain_ms:.3f} ms; "
+                  + rate_line(shape, dtype, False, ms, bound))
             assert err <= tol, (tag, err, tol)
             if dtype == torch.bfloat16:
                 with torch.no_grad():
@@ -284,7 +288,8 @@ def phase_kernel(device) -> dict:
                 print(f"[kernel] {tag} vs float32 plain: L2-rel {rel:.2e} "
                       f"(tol {K1_BF16_L2_TOL:.0e})")
                 assert rel <= K1_BF16_L2_TOL, (tag, rel)
-            report[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            report[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               bound=bound)
     return report
 
 
@@ -414,6 +419,14 @@ def bound_ms(shape, dtype, backward: bool) -> tuple:
     return work_bound(*sweep_work(shape, dtype, backward), PEAK_FLOPS[dtype])
 
 
+def rate_line(shape, dtype, backward: bool, ms: float, bound: tuple) -> str:
+    """K1's (or K2's) achieved rate at `shape` and its share of the
+    bound, for a kernel time of `ms`."""
+    flops = sweep_work(shape, dtype, backward)[0]
+    return (f"{flops / ms / 1e9:.2f} TFLOP/s, {bound[0] / ms:.4f} of the "
+            f"bound ({bound[0]:.4f} ms by {bound[1]})")
+
+
 def dot_sweep_work(shape, dtype) -> tuple:
     """(operations, bytes, tap bytes) of one K1-dot call at `shape`. The
     operations are the least the function needs per (view, plane, pixel):
@@ -478,9 +491,11 @@ def phase_backward(device) -> dict:
             ms = cuda_ms(lambda: cuda_cv.fused_sweep_bwd(*args, g), reps=10)
             plain_ms = cuda_ms(lambda: cuda_cv.fused_sweep_backward_reference(
                 *args, g), reps=3, warmup=1)
+            bound = bound_ms(shape, dtype, backward=True)
             print(f"[backward] {tag}: shape {shape} kernel {ms:.3f} ms "
                   f"plain {plain_ms:.3f} ms; max_abs_err {max_abs:.3e}; "
-                  f"d_src run-to-run max diff {run_to_run:.3e}")
+                  f"d_src run-to-run max diff {run_to_run:.3e}; "
+                  + rate_line(shape, dtype, True, ms, bound))
             print(f"[backward] {tag} vs float32 plain, per gradient "
                   "(max-rel, L2-rel): " + ", ".join(
                       f"{k_} {e[0]:.2e} {e[1]:.2e}" for k_, e in errs.items()))
@@ -499,14 +514,14 @@ def phase_backward(device) -> dict:
                       f"max_abs_err {max_abs:.3e}")
                 assert worst <= BWD_SAME_ROUNDING_TOL, same
             report[tag] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                               run_to_run=run_to_run)
+                               run_to_run=run_to_run, bound=bound)
     return report
 
 
 def _device_split(prof, steps: int) -> dict:
     """Device (self CUDA) time per step in ms, by kernel family."""
-    families = (("K1", ("fused_sweep_mlp_kernel",)),
-                ("K2", ("fused_sweep_bwd_kernel", "sum_partials_kernel")),
+    families = (("K1", ("fused_sweep_mlp_kernel", "fused_sweep_mma_kernel")),
+                ("K2", ("fused_sweep_bwd", "sum_partials_kernel")),
                 ("K1-dot", ("fused_sweep_dot_kernel",)),
                 ("K3", ("max_blur_pool",)),
                 ("convolution", ("conv", "cudnn", "dgrad", "wgrad", "fprop",
@@ -1187,9 +1202,6 @@ def main():
     # inference-only: hero b8 (for K5 one of its two launches there)
     b16 = f"hero_b{TRAIN_BATCH}_bfloat16"
     stem = f"encoder_b{TRAIN_BATCH}_{str(pool_dtype).split('.')[-1]}"
-    hero = (TRAIN_BATCH,) + HERO_SWEEP
-    kernel[b16]["bound"] = bound_ms(hero, torch.bfloat16, backward=False)
-    backward[b16]["bound"] = bound_ms(hero, torch.bfloat16, backward=True)
     hero_k, dot_k = trained["launches"], dot_trained["launches"]
     print(f"[summary] inference: hero K1 {hero_infer}, K5 "
           f"{early_served['K5']}, K4 {early_served['K4']}; dot K1-dot "

@@ -3,23 +3,42 @@
 // in one kernel.
 //
 // Replaces the TPU kernel simplerecon_tpu/ops/pallas_cv.py::
-// banded_warp_feature_volume (mode "mlp"; body _banded_kernel, launched by
-// _banded_call). That kernel samples with two-hot matrix products over
+// banded_warp_feature_volume (mode "mlp"; body _banded_kernel, :248,
+// launched by _banded_call, :354). That kernel samples with two-hot matrix products over
 // y-banded source tiles, because gathers starve the TPU's matrix unit.
 // Here each sample is four direct tap loads: one (b, view) feature map is
 // h*w*c elements (2.75 MB for all 7 hero views in bf16), so the taps hit
 // L2.
 //
-// What bounds it on an H100: the MLP, 2*(202*128 + 128*128 + 128) =
-// 84.7 kFLOP per (pixel, plane), 66.6 GFLOP per hero frame (b=1, d=64,
-// N=12288), against 0.5 MB of feature reads per plane. This first version
-// runs the MLP on the CUDA cores in float32 FMAs (no tensor cores), so it
-// is bound by FMA issue and the shared-memory reads that feed them.
+// What it computes per (pixel, plane): the MLP, 2*(202*128 + 128*128 +
+// 128) = 84.7 kFLOP, 1.07 TFLOP at hero b16 (d=64, N=12288), or 1.08 ms
+// at the H100's 989 TFLOP/s of bf16 tensor cores; the feature maps and
+// the float32 output are 0.2 GB, 0.06 ms at 3.35 TB/s. The taps, 4 x 16
+// channels a (pixel, plane, view) (3.6 KB a cell in bf16, 45 GB at b16),
+// come through L1 and L2; once the MLP is on the tensor cores they are
+// what sets the pace.
 //
-// Design: one block per (pixel tile of 64, plane, batch element), one
-// thread per hidden channel (128 threads). The block assembles the tile's
-// MLP inputs, rounded to the compute dtype, in shared memory, then runs
-// the MLP there (`mlp_tail` of sweep_common.cuh, shared with K4 and K5).
+// Two kernels, by the compute dtype:
+// * bf16, fused_sweep_mma_kernel (the training step's, the b8 forward's
+//   and the b1 request's): the MLP on the tensor cores (sweep_mma.cuh).
+//   Persistent blocks of 256 threads, one an SM, copy W0 (zero rows to
+//   C_in = 208) and W1 into shared memory once with cp.async, then walk
+//   work items of 128 cells (128 reference pixels at one plane): all
+//   threads fill the bf16 input tile X (fill_inputs_bf16: 16-byte tap
+//   loads, samples rounded once, dot rows from the unrounded samples),
+//   then warp i runs rows [16i, 16i + 16): layer 0 from X and W0 in
+//   shared memory, h0 rounded into layer 1's A fragments in registers,
+//   layer 1 from W1, the head as a quad-shuffle dot with w2. Shared
+//   memory at hero widths: W0 56,576 B + W1 34,816 + X (128 x 216)
+//   55,296 + b0, b1, w2 1,536 = 148,224 B. Registers: 185 a thread
+//   (64 accumulators, 32 for h0's fragments), no spills (ptxas).
+// * float32, fused_sweep_mlp_kernel: the first design, unchanged. The
+//   card-against-CPU checks run it; tensor cores would take float32 as
+//   TF32 and change its numbers. One block per (pixel tile of 64, plane,
+//   batch element), one thread per hidden channel (128 threads),
+//   assembles the tile's inputs in shared memory and runs the MLP there
+//   in float32 FMAs (`mlp_tail` of sweep_common.cuh, shared with K4 and
+//   K5).
 // Inputs: src (b,k,h,w,c), cur (b,N,c), w0 (C_in,128), w1 (128,128),
 // w2 (128,1) in the compute dtype T; proj = K @ src_T_cur (b,k,4,4),
 // invK (b,4,4), planes (b,d), pose_meta (b,k,3), src_loc (b,k,3) and the
@@ -55,61 +74,6 @@
 #include "sweep_common.cuh"
 
 namespace {
-
-// Unnormalised ray invK @ (x + 0.5, y + 0.5, 1) of reference pixel pix.
-__device__ __forceinline__ float3 pixel_ray(const float* ik, int pix, int w) {
-  const float px = (pix % w) + 0.5f;
-  const float py = (pix / w) + 0.5f;
-  return make_float3(ik[0] * px + ik[1] * py + ik[2],
-                     ik[4] * px + ik[5] * py + ik[6],
-                     ik[8] * px + ik[9] * py + ik[10]);
-}
-
-// Projection of one point into one source view and its bilinear taps.
-struct Taps {
-  int pix[4];    // tap pixel indices y * w + x: nw, ne, sw, se (0 outside)
-  float wt[4];   // tap weights (0 outside the image)
-  float z_eps;   // projected depth z + 1e-8
-  float mask;    // z_eps > 0
-};
-
-// Projects the reference-frame point (wx, wy, wz) (`project`), then takes
-// the bilinear taps at index coords (u - 0.5, v - 0.5), zeros outside the
-// image.
-__device__ __forceinline__ Taps project_taps(const float* P, float wx,
-                                             float wy, float wz, int h,
-                                             int w) {
-  Taps t;
-  const Projection q = project(P, wx, wy, wz);
-  t.z_eps = q.z_eps;
-  t.mask = q.mask;
-  const float u = q.u, v = q.v;
-
-  const float ix = u - 0.5f, iy = v - 0.5f;
-  const float x0 = floorf(ix), y0 = floorf(iy);
-  const float x1 = x0 + 1.f, y1 = y0 + 1.f;
-  const bool vx0 = x0 >= 0.f && x0 <= w - 1.f;
-  const bool vx1 = x1 >= 0.f && x1 <= w - 1.f;
-  const bool vy0 = y0 >= 0.f && y0 <= h - 1.f;
-  const bool vy1 = y1 >= 0.f && y1 <= h - 1.f;
-  const int xi0 = vx0 ? (int)x0 : 0, xi1 = vx1 ? (int)x1 : 0;
-  const int yi0 = vy0 ? (int)y0 : 0, yi1 = vy1 ? (int)y1 : 0;
-  t.wt[0] = (vx0 && vy0) ? (x1 - ix) * (y1 - iy) : 0.f;
-  t.wt[1] = (vx1 && vy0) ? (ix - x0) * (y1 - iy) : 0.f;
-  t.wt[2] = (vx0 && vy1) ? (x1 - ix) * (iy - y0) : 0.f;
-  t.wt[3] = (vx1 && vy1) ? (ix - x0) * (iy - y0) : 0.f;
-  t.pix[0] = yi0 * w + xi0;
-  t.pix[1] = yi0 * w + xi1;
-  t.pix[2] = yi1 * w + xi0;
-  t.pix[3] = yi1 * w + xi1;
-  return t;
-}
-
-// The float32 sample of one channel from its four tap values.
-__device__ __forceinline__ float bilinear(const Taps& t, float nw, float ne,
-                                          float sw, float se) {
-  return t.wt[0] * nw + t.wt[1] * ne + t.wt[2] * sw + t.wt[3] * se;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kHidden)
@@ -197,6 +161,162 @@ int launch(const void* src, const void* cur, const void* proj,
       static_cast<const float*>(b0), static_cast<const T*>(w1),
       static_cast<const float*>(b1), static_cast<const T*>(w2),
       static_cast<const float*>(b2), static_cast<float*>(out), k, h, w, c, d);
+  return (int)cudaGetLastError();
+}
+
+// ---- K1 in bf16: the MLP on the tensor cores (see the note above) -------
+constexpr int kMmaCells = 16 * (kMmaThreads / 32);
+
+inline size_t mma_smem_bytes(int cin) {
+  const int cinp = padded_cin(cin);
+  return ((size_t)(cinp + kHidden) * kWs + (size_t)kMmaCells * (cinp + 8)) *
+             sizeof(__nv_bfloat16) +
+         3 * kHidden * sizeof(float);
+}
+
+__global__ void __launch_bounds__(kMmaThreads, 1)
+fused_sweep_mma_kernel(const bf16* __restrict__ src,
+                       const bf16* __restrict__ cur,
+                       const float* __restrict__ proj,
+                       const float* __restrict__ invK,
+                       const float* __restrict__ planes,
+                       const float* __restrict__ pose_meta,
+                       const float* __restrict__ src_loc,
+                       const bf16* __restrict__ w0,
+                       const float* __restrict__ b0,
+                       const bf16* __restrict__ w1,
+                       const float* __restrict__ b1,
+                       const bf16* __restrict__ w2,
+                       const float* __restrict__ b2,
+                       float* __restrict__ out, int b, int k, int h, int w,
+                       int c, int d, int vec8) {
+  extern __shared__ uint4 smem_u4[];
+  const int n = h * w;
+  const int cin = mlp_in_channels(k, c);
+  const int cinp = padded_cin(cin);
+  const int xs = cinp + 8;
+  bf16* W0 = reinterpret_cast<bf16*>(smem_u4);
+  bf16* W1 = W0 + cinp * kWs;
+  bf16* X = W1 + kHidden * kWs;
+  float* B0 = reinterpret_cast<float*>(X + kMmaCells * xs);
+  float* B1 = B0 + kHidden;
+  float* W2 = B1 + kHidden;
+
+  const int tid = threadIdx.x;
+  load_weights(W0, W1, w0, w1, cin);
+  for (int i = tid; i < kMmaCells * (xs - cin); i += kMmaThreads) {
+    X[(i / (xs - cin)) * xs + cin + i % (xs - cin)] = __float2bfloat16_rn(0.f);
+  }
+  for (int i = tid; i < kHidden; i += kMmaThreads) {
+    B0[i] = b0[i];
+    B1[i] = b1[i];
+    W2[i] = __bfloat162float(w2[i]);
+  }
+  const float bias2 = b2[0];
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int m0 = (tid >> 5) * 16;  // this warp's rows of X
+
+  const int tiles = (n + kMmaCells - 1) / kMmaCells;
+  for (int item = blockIdx.x; item < b * d * tiles; item += gridDim.x) {
+    const int tile = item % tiles;
+    const int di = (item / tiles) % d;
+    const int bi = item / (tiles * d);
+    const int p0 = tile * kMmaCells;
+    const float plane = planes[bi * d + di];
+    __syncthreads();  // weights loaded; the previous item's X consumed
+    fill_inputs_bf16(X, xs, kMmaCells, src + (size_t)bi * k * n * c,
+                     cur + (size_t)bi * n * c, proj + bi * k * 16,
+                     invK + bi * 16, plane, pose_meta + bi * k * 3,
+                     src_loc + bi * k * 3, p0, n, k, h, w, c, vec8 != 0);
+    __syncthreads();
+
+    // layer 0: h0 = round(lrelu(x W0 + b0)), 16 rows x 128 a warp
+    float acc[16][4];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    }
+    warp_product<16>(acc, X, xs, m0, W0, kWs, 0, cinp);
+    uint32_t a1[8][4];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float2 bj = *reinterpret_cast<const float2*>(B0 + 8 * j + 2 * t);
+      acc[j][0] = leaky_relu(acc[j][0] + bj.x);
+      acc[j][1] = leaky_relu(acc[j][1] + bj.y);
+      acc[j][2] = leaky_relu(acc[j][2] + bj.x);
+      acc[j][3] = leaky_relu(acc[j][3] + bj.y);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) accum_to_a(a1[kk], acc, kk);
+
+    // layer 1 from registers
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+      for (int j = 0; j < 16; j += 2) {
+        uint32_t bf[4];
+        load_b(bf, W1, kWs, 16 * kk, 8 * j);
+        mma_bf16(acc[j], a1[kk], bf[0], bf[1]);
+        mma_bf16(acc[j + 1], a1[kk], bf[2], bf[3]);
+      }
+    }
+
+    // head: out = round(lrelu(h1p + b1)) . w2 + b2, rows g and g + 8
+    float lo = 0.f, hi = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + 2 * t;
+      const float2 bj = *reinterpret_cast<const float2*>(B1 + col);
+      const float2 wj = *reinterpret_cast<const float2*>(W2 + col);
+      lo = fmaf(round_to<bf16>(leaky_relu(acc[j][0] + bj.x)), wj.x, lo);
+      lo = fmaf(round_to<bf16>(leaky_relu(acc[j][1] + bj.y)), wj.y, lo);
+      hi = fmaf(round_to<bf16>(leaky_relu(acc[j][2] + bj.x)), wj.x, hi);
+      hi = fmaf(round_to<bf16>(leaky_relu(acc[j][3] + bj.y)), wj.y, hi);
+    }
+#pragma unroll
+    for (int s = 1; s < 4; s <<= 1) {
+      lo += __shfl_xor_sync(0xffffffffu, lo, s);
+      hi += __shfl_xor_sync(0xffffffffu, hi, s);
+    }
+    float* o = out + ((size_t)bi * d + di) * n;
+    const int p = p0 + m0 + g;
+    if (t == 0 && p < n) o[p] = lo + bias2;
+    if (t == 0 && p + 8 < n) o[p + 8] = hi + bias2;
+  }
+}
+
+int launch_mma(const void* src, const void* cur, const void* proj,
+               const void* invK, const void* planes, const void* pose_meta,
+               const void* src_loc, const void* w0, const void* b0,
+               const void* w1, const void* b1, const void* w2,
+               const void* b2, void* out, int b, int k, int h, int w, int c,
+               int d, cudaStream_t stream) {
+  const size_t smem = mma_smem_bytes(mlp_in_channels(k, c));
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_sweep_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long items = (long)b * d * ((h * w + kMmaCells - 1) / kMmaCells);
+  const int blocks = (int)(items < sms ? items : sms);
+  const int vec8 = c % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(cur) % 16 == 0;
+  fused_sweep_mma_kernel<<<blocks, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(src), static_cast<const bf16*>(cur),
+      static_cast<const float*>(proj), static_cast<const float*>(invK),
+      static_cast<const float*>(planes), static_cast<const float*>(pose_meta),
+      static_cast<const float*>(src_loc), static_cast<const bf16*>(w0),
+      static_cast<const float*>(b0), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+      static_cast<const float*>(b2), static_cast<float*>(out), b, k, h, w, c,
+      d, vec8);
   return (int)cudaGetLastError();
 }
 
@@ -306,9 +426,8 @@ extern "C" int fused_sweep_mlp(int dtype, const void* src, const void* cur,
                          b0, w1, b1, w2, b2, out, b, k, h, w, c, d, s);
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(src, cur, proj, invK, planes, pose_meta,
-                                 src_loc, w0, b0, w1, b1, w2, b2, out, b, k,
-                                 h, w, c, d, s);
+    return launch_mma(src, cur, proj, invK, planes, pose_meta, src_loc, w0,
+                      b0, w1, b1, w2, b2, out, b, k, h, w, c, d, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,14 @@
-// What the three forward sweep kernels share: K1 (fused_sweep.cu,
-// fused_sweep_mlp_kernel), K4 and K5 (early_sweeps.cu). `project` is the
-// projection of a plane point into a source view (K1's and K4's); the rest
-// is the metadata rows and the MLP. Each kernel's block owns one tile of
-// kTile reference pixels at one (batch, plane) and runs kHidden threads.
+// What the sweep kernels share. The float32 CUDA-core forward sweeps, K1
+// (fused_sweep.cu, fused_sweep_mlp_kernel; K4 and K5 in both dtypes,
+// early_sweeps.cu) share `project`, the projection of a plane point into
+// a source view (K1's and K4's), the metadata rows and the MLP below.
+// K1, K1-dot and K2 share `project_taps` and `bilinear`. The bf16
+// tensor-core kernels of K1 and K2 share the last section: the weight
+// copy and the bf16 input tile (`fill_inputs_bf16`), with the mma tile of
+// sweep_mma.cuh.
+//
+// A CUDA-core sweep kernel's block owns one tile of kTile reference
+// pixels at one (batch, plane) and runs kHidden threads.
 // It assembles the tile's MLP input in shared memory as rows of kTile
 // pixels, in the channel order of simplerecon_tpu/models/cost_volume.py::
 // _metadata_chunk:
@@ -31,6 +37,9 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+
+#include "sweep_mma.cuh"
 
 namespace {
 
@@ -81,6 +90,61 @@ __device__ __forceinline__ Projection project(const float* P, float wx,
   q.v = cy * scale;
   q.mask = q.z_eps > 0.f ? 1.f : 0.f;
   return q;
+}
+
+// Unnormalised ray invK @ (x + 0.5, y + 0.5, 1) of reference pixel pix.
+__device__ __forceinline__ float3 pixel_ray(const float* ik, int pix, int w) {
+  const float px = (pix % w) + 0.5f;
+  const float py = (pix / w) + 0.5f;
+  return make_float3(ik[0] * px + ik[1] * py + ik[2],
+                     ik[4] * px + ik[5] * py + ik[6],
+                     ik[8] * px + ik[9] * py + ik[10]);
+}
+
+// Projection of one point into one source view and its bilinear taps.
+struct Taps {
+  int pix[4];    // tap pixel indices y * w + x: nw, ne, sw, se (0 outside)
+  float wt[4];   // tap weights (0 outside the image)
+  float z_eps;   // projected depth z + 1e-8
+  float mask;    // z_eps > 0
+};
+
+// Projects the reference-frame point (wx, wy, wz) (`project`), then takes
+// the bilinear taps at index coords (u - 0.5, v - 0.5), zeros outside the
+// image.
+__device__ __forceinline__ Taps project_taps(const float* P, float wx,
+                                             float wy, float wz, int h,
+                                             int w) {
+  Taps t;
+  const Projection q = project(P, wx, wy, wz);
+  t.z_eps = q.z_eps;
+  t.mask = q.mask;
+  const float u = q.u, v = q.v;
+
+  const float ix = u - 0.5f, iy = v - 0.5f;
+  const float x0 = floorf(ix), y0 = floorf(iy);
+  const float x1 = x0 + 1.f, y1 = y0 + 1.f;
+  const bool vx0 = x0 >= 0.f && x0 <= w - 1.f;
+  const bool vx1 = x1 >= 0.f && x1 <= w - 1.f;
+  const bool vy0 = y0 >= 0.f && y0 <= h - 1.f;
+  const bool vy1 = y1 >= 0.f && y1 <= h - 1.f;
+  const int xi0 = vx0 ? (int)x0 : 0, xi1 = vx1 ? (int)x1 : 0;
+  const int yi0 = vy0 ? (int)y0 : 0, yi1 = vy1 ? (int)y1 : 0;
+  t.wt[0] = (vx0 && vy0) ? (x1 - ix) * (y1 - iy) : 0.f;
+  t.wt[1] = (vx1 && vy0) ? (ix - x0) * (y1 - iy) : 0.f;
+  t.wt[2] = (vx0 && vy1) ? (x1 - ix) * (iy - y0) : 0.f;
+  t.wt[3] = (vx1 && vy1) ? (ix - x0) * (iy - y0) : 0.f;
+  t.pix[0] = yi0 * w + xi0;
+  t.pix[1] = yi0 * w + xi1;
+  t.pix[2] = yi1 * w + xi0;
+  t.pix[3] = yi1 * w + xi1;
+  return t;
+}
+
+// The float32 sample of one channel from its four tap values.
+__device__ __forceinline__ float bilinear(const Taps& t, float nw, float ne,
+                                          float sw, float se) {
+  return t.wt[0] * nw + t.wt[1] * ne + t.wt[2] * sw + t.wt[3] * se;
 }
 
 // Dynamic shared memory of one block: the input rows, reused for the
@@ -211,6 +275,175 @@ __device__ __forceinline__ void mlp_tail(float* rows, int cin,
       o = fmaf(rows[j * kRow + tid], to_float(w2[j]), o);
     }
     out[tid] = o + b2[0];
+  }
+}
+
+// ---- the bf16 input tile of the tensor-core kernels (K1 and K2, bf16) ----
+// There the MLP input is a row-major bf16 tile X, one row of xs elements
+// per cell (reference pixel, plane), in the channel order above. It holds
+// the values that the float32 row layout holds, rounded where K1 rounds.
+
+constexpr int kMmaThreads = 256;   // 8 warps a block
+constexpr int kWs = kHidden + 8;   // weight row stride in shared memory
+
+// C_in padded with zero rows to the products' k-step of 16, keeping at
+// least one zero row (K2's d_x points its padding columns there).
+__host__ __device__ __forceinline__ int padded_cin(int cin) {
+  return (cin + 16) / 16 * 16;
+}
+
+// Copies w0 (cin x 128) and w1 (128 x 128) into shared memory, kWs
+// elements a row, and zeroes rows [cin, padded_cin(cin)) of W0. Every
+// thread of the block calls it; the caller syncs.
+__device__ __forceinline__ void load_weights(
+    __nv_bfloat16* W0, __nv_bfloat16* W1,
+    const __nv_bfloat16* __restrict__ w0,
+    const __nv_bfloat16* __restrict__ w1, int cin) {
+  copy_rows(W0, kWs, w0, cin, kHidden);
+  copy_rows(W1, kWs, w1, kHidden, kHidden);
+  const int pad = padded_cin(cin) - cin;
+  for (int i = threadIdx.x; i < pad * kHidden; i += blockDim.x) {
+    W0[(cin + i / kHidden) * kWs + i % kHidden] = __float2bfloat16_rn(0.f);
+  }
+  copy_wait();
+}
+
+// Loads 8 bf16 from a 16-byte-aligned address as float32.
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(q[e]);
+    v[2 * e] = f.x;
+    v[2 * e + 1] = f.y;
+  }
+}
+
+// The float32 samples of channels [ch0, ch0 + 8) of one view's taps
+// (img is the view's (h*w, c) map, 16-byte aligned, c % 8 == 0).
+__device__ __forceinline__ void sample8(const __nv_bfloat16* img, int c,
+                                        const Taps& t, int ch0,
+                                        float (&s)[8]) {
+  uint4 q[4];  // the four taps' 8 channels, still bf16
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    q[i] = *reinterpret_cast<const uint4*>(img + (size_t)t.pix[i] * c + ch0);
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    float2 f[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[i] = __bfloat1622float2(
+          reinterpret_cast<const __nv_bfloat162*>(&q[i])[e]);
+    }
+    s[2 * e] = bilinear(t, f[0].x, f[1].x, f[2].x, f[3].x);
+    s[2 * e + 1] = bilinear(t, f[0].y, f[1].y, f[2].y, f[3].y);
+  }
+}
+
+// The float32 sample of channel ch (any c).
+__device__ __forceinline__ float sample1(const __nv_bfloat16* img, int c,
+                                         const Taps& t, int ch) {
+  return bilinear(t, __bfloat162float(img[(size_t)t.pix[0] * c + ch]),
+                  __bfloat162float(img[(size_t)t.pix[1] * c + ch]),
+                  __bfloat162float(img[(size_t)t.pix[2] * c + ch]),
+                  __bfloat162float(img[(size_t)t.pix[3] * c + ch]));
+}
+
+// Fills rows [0, M) of X: row m is reference pixel min(p0 + m, n - 1) at
+// depth `plane` (a ragged last tile repeats the last pixel; the caller
+// drops its results). src (k, h*w, c), cur (h*w, c), proj (k, 4, 4),
+// ik (4, 4), pose (k, 3) and loc (k, 3) are one batch element's. Columns
+// [cin, xs) are not written: the caller zeroes them once. vec8: c % 8 ==
+// 0 and src, cur 16-byte aligned, so taps are 16-byte loads. Samples are
+// float32 from the bf16 maps, rounded once into X; the dot rows come from
+// the unrounded samples, as in K1's float32 layout. Every thread of the
+// block calls it.
+__device__ __forceinline__ void fill_inputs_bf16(
+    __nv_bfloat16* X, int xs, int M, const __nv_bfloat16* __restrict__ src,
+    const __nv_bfloat16* __restrict__ cur, const float* __restrict__ proj,
+    const float* __restrict__ ik, float plane,
+    const float* __restrict__ pose, const float* __restrict__ loc, int p0,
+    int n, int k, int h, int w, int c, bool vec8) {
+  const int meta = (k + 1) * c;
+  // one loop over M * k (pixel, view) items, then M pixel items, so every
+  // thread takes about the same share of the loads
+  for (int item = threadIdx.x; item < M * (k + 1); item += blockDim.x) {
+    if (item >= M * k) {  // pixel_meta_rows' values
+      const int m = item - M * k;
+      const int pix = min(p0 + m, n - 1);
+      const __nv_bfloat16* cur_p = cur + (size_t)pix * c;
+      __nv_bfloat16* x = X + m * xs;
+      if (vec8) {
+        for (int ch0 = 0; ch0 < c; ch0 += 8) {
+          *reinterpret_cast<uint4*>(x + k * c + ch0) =
+              *reinterpret_cast<const uint4*>(cur_p + ch0);
+        }
+      } else {
+        for (int ch = 0; ch < c; ++ch) x[k * c + ch] = cur_p[ch];
+      }
+      const float3 ray = pixel_ray(ik, pix, w);
+      const float rx = ray.x, ry = ray.y, rz = ray.z;
+      const float ref_inv =
+          1.0f / sqrtf(rx * rx + ry * ry + rz * rz + 1e-30f);
+      x[meta + 2 * k] = __float2bfloat16_rn(plane);
+      x[meta + 4 * k + 1] = __float2bfloat16_rn(rx * ref_inv);
+      x[meta + 4 * k + 2] = __float2bfloat16_rn(ry * ref_inv);
+      x[meta + 4 * k + 3] = __float2bfloat16_rn(rz * ref_inv);
+      for (int jv = 0; jv < 3 * k; ++jv) {
+        const int j = jv / k, view = jv % k;
+        x[meta + 7 * k + 4 + jv] = __float2bfloat16_rn(pose[view * 3 + j]);
+      }
+      continue;
+    }
+    const int m = item % M;
+    const int view = item / M;
+    const int pix = min(p0 + m, n - 1);
+    const float3 ray = pixel_ray(ik, pix, w);
+    const Taps t = project_taps(proj + view * 16, ray.x * plane,
+                                ray.y * plane, ray.z * plane, h, w);
+    const __nv_bfloat16* img = src + (size_t)view * n * c;
+    const __nv_bfloat16* cur_p = cur + (size_t)pix * c;
+    __nv_bfloat16* x = X + m * xs;
+    float dot = 0.f;
+    if (vec8) {
+      for (int ch0 = 0; ch0 < c; ch0 += 8) {
+        float s[8], cv[8];
+        sample8(img, c, t, ch0, s);
+        load8(cur_p + ch0, cv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) dot = fmaf(s[e], cv[e], dot);
+        *reinterpret_cast<uint4*>(x + view * c + ch0) =
+            make_uint4(pack_bf16(s[0], s[1]), pack_bf16(s[2], s[3]),
+                       pack_bf16(s[4], s[5]), pack_bf16(s[6], s[7]));
+      }
+    } else {
+      for (int ch = 0; ch < c; ++ch) {
+        const float s = sample1(img, c, t, ch);
+        x[view * c + ch] = __float2bfloat16_rn(s);
+        dot = fmaf(s, __bfloat162float(cur_p[ch]), dot);
+      }
+    }
+    // view_meta_rows' values
+    const float rx = ray.x, ry = ray.y, rz = ray.z;
+    const float wx = rx * plane, wy = ry * plane, wz = rz * plane;
+    const float ref_inv = 1.0f / sqrtf(rx * rx + ry * ry + rz * rz + 1e-30f);
+    const float* lv = loc + view * 3;
+    const float sx = wx - lv[0], sy = wy - lv[1], sz = wz - lv[2];
+    const float src_inv = 1.0f / sqrtf(sx * sx + sy * sy + sz * sz + 1e-30f);
+    const float angle =
+        (rx * ref_inv) * (sx * src_inv) + (ry * ref_inv) * (sy * src_inv) +
+        (rz * ref_inv) * (sz * src_inv);
+    x[meta + view] = __float2bfloat16_rn(t.mask);
+    x[meta + k + view] = __float2bfloat16_rn(t.z_eps);
+    x[meta + 2 * k + 1 + view] = __float2bfloat16_rn(dot * t.mask);
+    x[meta + 3 * k + 1 + view] = __float2bfloat16_rn(angle);
+    const int sray = meta + 4 * k + 4 + 3 * view;
+    x[sray + 0] = __float2bfloat16_rn(sx * src_inv);
+    x[sray + 1] = __float2bfloat16_rn(sy * src_inv);
+    x[sray + 2] = __float2bfloat16_rn(sz * src_inv);
   }
 }
 

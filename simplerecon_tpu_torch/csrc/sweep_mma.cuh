@@ -1,0 +1,171 @@
+// The warp-level bf16 tile that the bf16 sweep kernels (K1 in
+// fused_sweep.cu, K2 in fused_sweep_bwd.cu) run their MLP products on:
+// mma.sync m16n8k16 with bf16 operands and float32 accumulation, fed by
+// ldmatrix from shared memory. Raw PTX, no CUTLASS, so nvcc stays at
+// seconds.
+//
+// The JAX kernels run the same products as bf16 matrix products with
+// float32 accumulation (simplerecon_tpu/ops/pallas_cv.py:343-350 forward,
+// :859-888 backward), and the plain versions round at the same points, so
+// moving a product onto the tensor cores changes only the order of its
+// float32 sums.
+//
+// Fragments of one m16n8k16 product, lane = 4 * g + t (g = lane / 4,
+// t = lane % 4), each register two bf16 (lower index in the low half):
+//   A (16 x 16): a[0] = A[g][2t..2t+1], a[1] = A[g+8][2t..], a[2] =
+//                A[g][2t+8..], a[3] = A[g+8][2t+8..];
+//   B (16 x 8):  b[0] = B[2t..2t+1][g], b[1] = B[2t+8..2t+9][g];
+//   C (16 x 8):  c[0], c[1] = C[g][2t], C[g][2t+1]; c[2], c[3] = row g+8.
+// C of n-tiles 2kk and 2kk+1 is, element for element, the A fragment of
+// k-step kk of the next product (`accum_to_a`), so a hidden layer can
+// stay in registers.
+//
+// Shared-memory operands are bf16, row-major, s elements a row, with s / 2
+// words an odd multiple of 4 modulo 32, so the eight 16-byte rows that
+// one ldmatrix phase reads fall in distinct banks: s = cols + 8 for cols
+// a multiple of 16.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a * b for one 16 x 8 x 16 tile.
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A fragment of rows [m0, m0 + 16) and columns [k0, k0 + 16) of a
+// row-major A (s elements a row).
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* A,
+                                       int s, int m0, int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(a, smem_addr(A + (m0 + (lane & 15)) * s + k0 + (lane >> 4) * 8));
+}
+
+// The same fragment of A = S^T, S row-major (rows k, columns m).
+__device__ __forceinline__ void load_a_t(uint32_t (&a)[4], const bf16* S,
+                                         int s, int m0, int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4_t(a, smem_addr(S + (k0 + (lane & 7) + ((lane >> 4) << 3)) * s +
+                         m0 + ((lane >> 3) & 1) * 8));
+}
+
+// B fragments of n-tiles [n0, n0 + 8) (b[0], b[1]) and [n0 + 8, n0 + 16)
+// (b[2], b[3]) at rows [k0, k0 + 16) of a row-major B (rows k).
+__device__ __forceinline__ void load_b(uint32_t (&b)[4], const bf16* B,
+                                       int s, int k0, int n0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4_t(b, smem_addr(B + (k0 + (lane & 15)) * s + n0 + (lane >> 4) * 8));
+}
+
+// The same fragments of B = S^T, S row-major (rows n): this lane's row
+// of S is `row`, which the caller picks (n0 + (lane & 7) + ((lane >> 4)
+// << 3) for a plain transpose; `b_t_row` gives it).
+__device__ __forceinline__ void load_b_t(uint32_t (&b)[4], const bf16* row,
+                                         int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(b, smem_addr(row + k0 + ((lane >> 3) & 1) * 8));
+}
+
+__device__ __forceinline__ int b_t_row(int n0) {
+  const int lane = threadIdx.x & 31;
+  return n0 + (lane & 7) + ((lane >> 4) << 3);
+}
+
+// The A fragment of k-step kk of a product whose A is the accumulators
+// c[n-tile][4] of the previous one, rounded to bf16.
+template <int NT>
+__device__ __forceinline__ void accum_to_a(uint32_t (&a)[4],
+                                           const float (&c)[NT][4], int kk) {
+  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+}
+
+// c[j] += A[m0..m0+16) x B[.., n0 + 8j ..) over k in [0, kdim), j < NT
+// (NT even): A row-major (sa), B row-major with rows k (sb).
+template <int NT>
+__device__ __forceinline__ void warp_product(float (&c)[NT][4],
+                                             const bf16* A, int sa, int m0,
+                                             const bf16* B, int sb, int n0,
+                                             int kdim) {
+  for (int k0 = 0; k0 < kdim; k0 += 16) {
+    uint32_t a[4];
+    load_a(a, A, sa, m0, k0);
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      uint32_t b[4];
+      load_b(b, B, sb, k0, n0 + 8 * j);
+      mma_bf16(c[j], a, b[0], b[1]);
+      mma_bf16(c[j + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// Copies `rows` rows of `cols` bf16 (a multiple of 8) from global src
+// (row-major, dense) to shared dst (s elements a row): 16-byte cp.async
+// where src is 16-byte aligned, else 2-byte loads. Every thread of the
+// block calls it; the caller waits (`copy_wait`) and syncs.
+__device__ __forceinline__ void copy_rows(bf16* dst, int s,
+                                          const bf16* __restrict__ src,
+                                          int rows, int cols) {
+  const int chunks = cols / 8;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    for (int i = threadIdx.x; i < rows * chunks; i += blockDim.x) {
+      const int r = i / chunks, q = i % chunks;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       smem_addr(dst + r * s + q * 8)),
+                   "l"(src + (size_t)r * cols + q * 8));
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  } else {
+    for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
+      dst[(i / cols) * s + i % cols] = src[i];
+    }
+  }
+}
+
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+}  // namespace

@@ -358,14 +358,17 @@ def fused_sweep_bwd(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44,
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         blocks = min(tiles, sms)
         proj = torch.matmul(src_Ks_bk44, src_extrinsics_bk44).contiguous()
-        w0t = w0.t().contiguous()
-        w1t = w1.t().contiguous()
+        # the float32 kernel reads W0^T and W1^T; the bf16 one transposes
+        # in its ldmatrix loads
+        fp32 = w0.dtype == torch.float32
+        w0t = w0.t().contiguous() if fp32 else None
+        w1t = w1.t().contiguous() if fp32 else None
         d_src = torch.zeros(src_feats_bkhwc.shape, dtype=f32, device=device)
         d_cur = torch.empty((b, h * w, c), dtype=f32, device=device)
         partials = torch.empty((blocks, n_params), dtype=f32, device=device)
         d_params = torch.empty((n_params,), dtype=f32, device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
-        ptrs = [t.data_ptr() for t in (
+        ptrs = [0 if t is None else t.data_ptr() for t in (
             src_feats_bkhwc, cur_bNc, proj, cur_invK_b44, depth_planes_bd,
             pose_meta_bk3, src_loc_bk3, w0, w0t, b0, w1, w1t, b1, w2, g_bdN,
             d_src, d_cur, partials, d_params)]

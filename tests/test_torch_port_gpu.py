@@ -27,6 +27,16 @@ rounds at six points (the MLP input, h0, h1, d_h1p, d_h0p, d_s) by up to
 2^-9 each, and the gradients sum those products with cancellation. The
 plain backward in bf16 is as far from float32 (measured <= 4.6e-2).
 
+bf16 K1 and K2 run on the tensor cores (work items of 128 and 32 cells):
+at shapes whose pixel count is no multiple of either and whose plane
+count is no multiple of any plane group, with c = 16 (16-byte tap loads)
+and c = 4 (scalar taps and atomics), K1 is held as above and K2 to
+||kernel - plain|| <= 2e-2 ||plain|| per gradient against the bf16 plain
+backward (the same rounding points; a float32 sum in another order flips
+a few bf16 roundings, which the gradients' cancelling sums amplify), and
+to the 0.1 above against the float32 one. K2's d_cur and weight and
+bias gradients are summed in a fixed order: two calls give the same bits.
+
 K1-dot: max |kernel - plain| <= 1e-4 * max(1, max |plain|) in float32
 and in bf16. Neither version rounds inside: both sample bf16 maps in
 float32 and dot in float32, so the two differ only by the order of the
@@ -60,6 +70,7 @@ pytestmark = pytest.mark.gpu
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 BWD_MAX_TOL = 1e-4                          # float32, odd shape
 BWD_L2_TOL = {torch.float32: 1e-2, torch.bfloat16: 0.1}
+BWD_SAME_ROUNDING_TOL = 2e-2                # bf16 against the bf16 plain
 DOT_TOL = 1e-4
 POOL_TOL = 1e-5                             # float32
 POOL_BF16_REL = 2.0 ** -8
@@ -142,6 +153,50 @@ def test_autograd_through_the_kernels_launches_each_once(cuda):
             cuda_cv.fused_sweep_bwd.launches) == (before[0] + 1,
                                                   before[1] + 1)
     assert args[0].grad is not None and args[8].grad is not None
+
+
+@pytest.mark.parametrize("shape", [(2, 7, 20, 30, 16, 7),
+                                   (1, 2, 9, 11, 4, 3)],
+                         ids=["ragged_c16", "ragged_c4"])
+def test_bf16_tensor_core_kernels_match_plain_versions(cuda, shape):
+    b, k, h, w, c, d = shape
+    args = sweep_case(*shape, dtype=torch.bfloat16, device=cuda, seed=3)
+    g = sweep_cotangent(b, d, h * w, cuda, seed=4)
+    before = (cuda_cv.fused_sweep.launches, cuda_cv.fused_sweep_bwd.launches)
+    with torch.no_grad():
+        got = cuda_cv.fused_sweep(*args)
+    grads = cuda_cv.fused_sweep_bwd(*args, g)
+    torch.cuda.synchronize()
+    assert (cuda_cv.fused_sweep.launches,
+            cuda_cv.fused_sweep_bwd.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    want = cuda_cv.fused_sweep_reference(*args)
+    assert got.shape == (b, d, h * w) and torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= TOL[torch.bfloat16] * max(1.0, want.abs().max().item())
+    for a in grads:
+        assert a.dtype == torch.float32 and torch.isfinite(a).all()
+    same = relative_errors(
+        grads, cuda_cv.fused_sweep_backward_reference(*args, g))
+    assert max(e[1] for e in same.values()) <= BWD_SAME_ROUNDING_TOL, same
+    f32 = relative_errors(grads, cuda_cv.fused_sweep_backward_reference(
+        *[a.float() for a in args], g))
+    assert max(e[1] for e in f32.values()) <= BWD_L2_TOL[torch.bfloat16], f32
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_backward_kernel_sums_weights_in_a_fixed_order(cuda, dtype):
+    shape = (2, 7, 20, 30, 16, 7)
+    b, k, h, w, c, d = shape
+    args = sweep_case(*shape, dtype=dtype, device=cuda, seed=5)
+    g = sweep_cotangent(b, d, h * w, cuda, seed=6)
+    first = cuda_cv.fused_sweep_bwd(*args, g)
+    second = cuda_cv.fused_sweep_bwd(*args, g)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("d_cur", "d_w0", "d_b0", "d_w1", "d_b1", "d_w2",
+                           "d_b2"), first[1:], second[1:]):
+        assert torch.equal(x, y), name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
