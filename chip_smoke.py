@@ -19,19 +19,23 @@ non-zero, and only a run that passes them all prints the last line:
    per-request latency;
 5. the card against the CPU in float32 at a reduced size (192x256, hero
    widths): the kernel path against the plain path, same weights;
-6. the sweep's backward kernel (K2) against its plain PyTorch version at
-   the hero shape (b=1) and the small odd shape, in float32 (TF32 off)
-   and bf16, and at hero b=16 in bf16; bf16 judged against both the
-   float32 and the bf16 plain backward; CUDA-event times of both, the
-   kernel's TFLOP/s and share of its bound, and the run-to-run
-   difference of d_src;
+6. the sweep's backward kernel (K2, with the scatter that sums its d_src)
+   against its plain PyTorch version at the hero shape (b=1) and the
+   small odd shape, in float32 (TF32 off) and bf16, and at hero b=16 in
+   bf16; bf16 judged against both the float32 and the bf16 plain
+   backward; CUDA-event times of both, the kernel's TFLOP/s and share of
+   its bound; all eight gradients, d_src included, bit-identical over two
+   calls; the scatter alone against its plain version on seeded sample
+   gradients of the same shape, bit-identical over two calls, its time
+   and bound, and at b=16 one `index_add_` call on the same taps;
 7. hero training on the card: 384x512, 8 views, 64 planes, bf16, batch
    16, one fixed seeded batch; 3 warm-up and 5 timed steps through
    `parallel/train.py::train_step`: losses and gradient norms finite,
-   the loss lower than at the first step, K1 and K2 each launched once
-   a step, parameters changed; median step time, peak memory, and a
-   `torch.profiler` split of the device time over two more steps; then
-   the same steps at a tenth of the learning rate, for the loss series;
+   the loss lower than at the first step, K1, K2 and the scatter each
+   launched once a step, parameters changed; median step time, peak
+   memory, and a `torch.profiler` split of the device time over two
+   more steps; then the same steps at a tenth of the learning rate, for
+   the loss series;
 8. the card against the CPU in float32 at 192x256 (hero widths): six
    training steps from the same init, batch and flip coins, with the
    first step's loss and the gradients of the sweep MLP, the first
@@ -41,8 +45,10 @@ non-zero, and only a run that passes them all prints the last line:
 9. the dot-product sweep kernel (K1-dot) against its plain version at the
    small odd shape and hero b=1 in float32 (TF32 off) and bf16, and at
    hero b=8 and b=16 in bf16, bf16 also against the plain version on the
-   unrounded float32 features; CUDA-event times of both, of the plain
-   dot backward at b=16, and the bound;
+   unrounded float32 features; CUDA-event times of both and the bound;
+   the dot backward (d_cur in plain PyTorch, d_src by the scatter)
+   bit-identical over two calls, the scatter in its dot mode against its
+   plain version, and at b=16 the dot backward's time and the scatter's;
 10. the stem pool kernels (K3-fwd, K3-bwd) against the plain chain and
    its autograd at an odd shape and the encoder's shapes at b=1 and b=16,
    in float32 and in the dtype the bf16 encoder hands the pool, on
@@ -51,14 +57,16 @@ non-zero, and only a run that passes them all prints the last line:
 11. the dot-product model (bf16, `matching_pool_impl="pallas"`,
    `fast_cost_volume=True`) through `OnlineSession` over the 12-frame
    stream: outputs finite and of the right shapes, K1-dot and K3-fwd
-   launched once per answered frame, K1, K2 and K3-bwd never; latency,
-   then the hero and the dot model again in turns, and a profiled stream
-   of each (device busy time, kernels and top host ops per request);
+   launched once per answered frame, K1, K2, K3-bwd and the scatter
+   never; latency, then the hero and the dot model again in turns, and a
+   profiled stream of each (device busy time, kernels and top host ops
+   per request);
 12. dot-product training, b16 bf16, one fixed batch, 3 warm-up and 5
    timed steps: finite losses and gradient norms, every parameter
-   changed, K1-dot, K3-fwd and K3-bwd once a step, K1 and K2 never;
+   changed, K1-dot, K3-fwd, K3-bwd and the scatter once a step, K1 and
+   K2 never;
    median step time, peak memory and a profiler split of device time
-   that names the plain dot backward's share;
+   that names the dot backward's share;
 13. the card against the CPU in float32 at 192x256 (dot widths): the
    forward as in phase 5, and the first training step's loss, gradient
    norm and gradients of the first matching conv and a decoder head as
@@ -68,7 +76,8 @@ non-zero, and only a run that passes them all prints the last line:
    "pallas_full"), against their plain versions at the small odd shape
    (N not a multiple of 64), at hero b=1 in float32 (TF32 off) and bf16,
    and at hero b=8 in bf16 (K5 at the 32 planes of one of its two
-   launches there); CUDA-event times of both and the bound;
+   launches there); CUDA-event times of both and the bound (in bf16 both
+   run their MLP on the tensor cores, as K1 does);
 15. the hero model (bf16, seeded weights with `spread_outputs_`) served
    through `OnlineSession` over the 12-frame stream with each of its
    three sweeps, "pallas" (K1), "pallas_v1" (the plain warp and K5) and
@@ -80,14 +89,16 @@ non-zero, and only a run that passes them all prints the last line:
 16. the card against the CPU in float32 at 192x256, as in phase 5, for
    "pallas_v1" and "pallas_full".
 
-The line before the last is the kernel report as JSON (seven kernels;
-K1, K2, K1-dot and K3 at the shapes their training path gives them, K4
-and K5 at hero b=8 inference); the last line is
+The line before the last is the kernel report as JSON (the seven
+kernels that replace the TPU kernels, and the scatter that sums K2's
+d_src; K1, K2, the scatter, K1-dot and K3 at the shapes their training
+path gives them, K4 and K5 at hero b=8 inference); the last line is
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
 
 import copy
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -110,9 +121,10 @@ from simplerecon_tpu_torch.ops import (  # noqa: E402
     _build, cuda_cv, early_sweeps, pool)
 from simplerecon_tpu_torch.parallel import train  # noqa: E402
 from simplerecon_tpu_torch.testing import (  # noqa: E402
-    dot_case, dot_options, hero_options, pool_case, pool_cotangent,
-    posed_stream, relative_errors, spread_outputs_, stack_case, sweep_case,
-    sweep_cotangent, train_batch, warp_case)
+    SWEEP_GRAD_NAMES, dot_case, dot_options, hero_options, pool_case,
+    pool_cotangent, posed_stream, relative_errors, scatter_case,
+    spread_outputs_, stack_case, sweep_case, sweep_cotangent, train_batch,
+    warp_case)
 
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # K1 in bf16 against the float32 plain version, relative L2: bf16 rounds
@@ -158,6 +170,11 @@ DOT_COMPARED = HERO_COMPARED[1:]
 # (2^-9 relative)
 DOT_TOL = 1e-4
 DOT_BF16_L2_TOL = 2e-2
+# the scatter against its plain version, which sums the same fixed-point
+# integers over taps from a projection whose float32 sums run in another
+# order (tests/test_torch_port_gpu.py): max |diff| <= SCATTER_TOL *
+# max(1, max |plain|)
+SCATTER_TOL = 1e-4
 # K3 (tests/test_torch_port_gpu.py gives the reasons): float32 max
 # |kernel - plain| <= POOL_TOL * max(1, max |plain|); bf16 elementwise
 # within POOL_BF16_REL of the float32 chain on the same values
@@ -179,6 +196,7 @@ SWEEPS_L2_TOL = 0.1
 SWEEPS_LOWEST_AGREE = 0.9
 # each wrapper's launch counter, by the kernel's name in PERF.md
 COUNTERS = {"K1": cuda_cv.fused_sweep, "K2": cuda_cv.fused_sweep_bwd,
+            "scatter": cuda_cv.sweep_scatter,
             "K1-dot": cuda_cv.dot_sweep, "K3-fwd": pool.max_blur_pool,
             "K3-bwd": pool.max_blur_pool_bwd,
             "K5": early_sweeps.fused_feature_volume,
@@ -227,21 +245,46 @@ def phase_card():
           f"device {torch.cuda.get_device_name(0)}")
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's name from its mangled symbol (its nested names are
+    length-prefixed), with <bf16> or <float> for a template on the
+    dtype."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    while True:
+        digits = re.match(r"\d+", mangled[i:])
+        if digits is None:
+            return mangled
+        j = i + digits.end()
+        name = mangled[j:j + int(digits.group())]
+        i = j + len(name)
+        if name.endswith("_kernel"):
+            args = mangled[i:]
+            return (name + ("<bf16>" if args.startswith("I13__nv_bfloat16")
+                            else "<float>" if args.startswith("If") else "")
+                    + (" (dot)" if "Lb1E" in args.split("Ev")[0] else ""))
+
+
 def phase_build():
     lib, seconds = _build.build()
     cuda_cv_lib = _build.load_library()
-    for entry in ("fused_sweep_mlp", "fused_sweep_mlp_bwd", "fused_sweep_dot",
-                  "max_blur_pool_fwd", "max_blur_pool_bwd",
+    for entry in ("fused_sweep_mlp", "fused_sweep_mlp_bwd", "sweep_scatter",
+                  "fused_sweep_dot", "max_blur_pool_fwd", "max_blur_pool_bwd",
                   "fused_feature_volume", "fused_warp_feature_volume"):
         assert getattr(cuda_cv_lib, entry) is not None, entry
     print(f"[build] {lib.name}: nvcc {seconds:.2f} s")
     ptxas = lib.with_suffix(".ptxas.txt")
     if ptxas.exists():
+        # per kernel: "Compiling entry function '<mangled>'", then its
+        # spill line, then its register line
+        entry, spills = "?", ""
         for line in ptxas.read_text().splitlines():
             if "Compiling entry" in line:
-                print(f"[build] ptxas: {line.split()[-3]}")
-            if "registers" in line or "spill" in line:
-                print(f"[build] ptxas: {line.strip()}")
+                entry = kernel_name(line.split("'")[1])
+            elif "spill" in line:
+                spills = line.strip()
+            elif "registers" in line:
+                print(f"[build] ptxas: {entry}: {line.split(':', 1)[-1]
+                                                 .strip()}; {spills}")
     return seconds
 
 
@@ -461,10 +504,90 @@ def pool_work(shape, dtype, backward: bool) -> tuple:
     return windows * 4 + outs * 32, (2 * ins + outs) * esize
 
 
-def phase_backward(device) -> dict:
+def scatter_work(shape, dtype, dot: bool) -> tuple:
+    """(operations, bytes) of one scatter call at a sweep `shape`: per
+    (sample, tap, channel) with a nonzero tap weight two products, the
+    conversion and the add (the dot mode one product more per sample
+    and channel), and each input read and d_src written once (K2's sample
+    gradients (b, k, d, N, c); the dot model's g and cur)."""
+    b, k, h, w, c, d = shape
+    n = h * w
+    esize = torch.tensor([], dtype=dtype).element_size()
+    samples = b * k * d * n
+    ops = samples * c * (4 * 4 + (1 if dot else 0))
+    inputs = (b * d * n * 4 + b * n * c * esize if dot
+              else samples * c * esize)
+    geometry = (b * k * 16 + b * 16 + b * d + 1) * 4
+    return ops, inputs + geometry + b * k * n * c * 4
+
+
+def index_add_ms(args, grads, reps: int) -> float:
+    """CUDA-event ms of one `index_add_` call that sums the same
+    contributions (precomputed rows and float32 values of all four taps,
+    from the plain version's projection) into d_src: the PyTorch call
+    that the scatter stands in for."""
+    proj, invK, planes, _, h, w = args
+    samples = "d_s_bkdNc" in grads
+    pix, mask = cuda_cv._project(proj, invK, planes, h, w)
+    if samples:
+        d_s = grads["d_s_bkdNc"].float()
+    else:
+        d_s = ((mask * grads["g_bdN"][:, None])[..., None]
+               * grads["cur_bNc"].float()[:, None, None])
+    b, k, _, n, c = d_s.shape
+    size = d_s.numel() // c
+    idx = torch.empty(4 * size, dtype=torch.int64, device=d_s.device)
+    vals = torch.empty((4 * size, c), dtype=torch.float32, device=d_s.device)
+    for t, (rows, wgt) in enumerate(cuda_cv._taps(pix, h, w)):
+        idx[t * size:(t + 1) * size] = rows.reshape(-1)
+        vals[t * size:(t + 1) * size] = (d_s * wgt[..., None]).reshape(-1, c)
+    del d_s, pix, mask, rows, wgt
+    out = torch.zeros((b * k * n, c), dtype=torch.float32, device=idx.device)
+    ms = cuda_ms(lambda: out.index_add_(0, idx, vals), reps=reps, warmup=1)
+    del idx, vals, out
+    torch.cuda.empty_cache()
+    return ms
+
+
+def check_scatter(shape, dtype, device, dot: bool, tag: str,
+                  library: bool = False) -> dict:
+    """The scatter against its plain version on seeded gradients at a
+    sweep `shape`, bit-identical over two calls; its time, the plain
+    version's, its bound and, with `library`, one `index_add_` call's."""
+    args, grads = scatter_case(*shape, dtype=dtype, device=device, seed=1,
+                               dot=dot)
+    before = cuda_cv.sweep_scatter.launches
+    got = cuda_cv.sweep_scatter(*args, **grads)
+    again = cuda_cv.sweep_scatter(*args, **grads)
+    want = cuda_cv.sweep_scatter_reference(*args, **grads)
+    torch.cuda.synchronize()
+    assert cuda_cv.sweep_scatter.launches == before + 2
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again), tag
+    err = (got - want).abs().max().item()
+    tol = SCATTER_TOL * max(1.0, want.abs().max().item())
+    del got, again, want
+    ms = cuda_ms(lambda: cuda_cv.sweep_scatter(*args, **grads), reps=10)
+    plain_ms = cuda_ms(lambda: cuda_cv.sweep_scatter_reference(
+        *args, **grads), reps=3, warmup=1)
+    library_ms = index_add_ms(args, grads, reps=3) if library else None
+    ops, nbytes = scatter_work(shape, dtype, dot)
+    bound = work_bound(ops, nbytes, PEAK_FLOPS[torch.float32])
+    print(f"[scatter] {tag}{' dot' if dot else ''}: shape {shape} "
+          f"max_abs_err {err:.3e} (tol {tol:.1e}); two calls bit-identical; "
+          f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms"
+          + (f" index_add_ {library_ms:.3f} ms" if library else "")
+          + f"; bound {bound[0]:.4f} ms by {bound[1]} ({ops / 1e9:.2f} "
+          f"GOP, {nbytes / 1e6:.1f} MB)")
+    assert err <= tol, (tag, err, tol)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=bound,
+                library_ms=library_ms)
+
+
+def phase_backward(device) -> tuple:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    report = {}
+    report, scatter = {}, {}
     fp32_bf16 = (torch.float32, torch.bfloat16)
     for name, shape, dtypes in (
             ("odd", (2, 3, 13, 21, 8, 5), fp32_bf16),
@@ -475,26 +598,32 @@ def phase_backward(device) -> dict:
         g = sweep_cotangent(b, d, h * w, device, seed=2)
         for dtype in dtypes:
             args = sweep_case(*shape, dtype=dtype, device=device, seed=1)
-            before = cuda_cv.fused_sweep_bwd.launches
+            before = (cuda_cv.fused_sweep_bwd.launches,
+                      cuda_cv.sweep_scatter.launches)
             got = cuda_cv.fused_sweep_bwd(*args, g)
             again = cuda_cv.fused_sweep_bwd(*args, g)
             torch.cuda.synchronize()
-            assert cuda_cv.fused_sweep_bwd.launches == before + 2
+            assert (cuda_cv.fused_sweep_bwd.launches,
+                    cuda_cv.sweep_scatter.launches) == (before[0] + 2,
+                                                        before[1] + 2)
+            tag = f"{name}_{str(dtype).split('.')[-1]}"
+            for grad, x, y in zip(SWEEP_GRAD_NAMES, got, again):
+                assert torch.equal(x, y), (tag, grad)
+            del again
             want = cuda_cv.fused_sweep_backward_reference(
                 *[a.float() for a in args], g)
             for a, ref in zip(got, want):
                 assert a.shape == ref.shape and torch.isfinite(a).all()
             errs = relative_errors(got, want)
-            run_to_run = (got[0] - again[0]).abs().max().item()
             max_abs = max(e[2] for e in errs.values())
-            tag = f"{name}_{str(dtype).split('.')[-1]}"
             ms = cuda_ms(lambda: cuda_cv.fused_sweep_bwd(*args, g), reps=10)
             plain_ms = cuda_ms(lambda: cuda_cv.fused_sweep_backward_reference(
                 *args, g), reps=3, warmup=1)
             bound = bound_ms(shape, dtype, backward=True)
-            print(f"[backward] {tag}: shape {shape} kernel {ms:.3f} ms "
-                  f"plain {plain_ms:.3f} ms; max_abs_err {max_abs:.3e}; "
-                  f"d_src run-to-run max diff {run_to_run:.3e}; "
+            print(f"[backward] {tag}: shape {shape} kernel (K2 and the "
+                  f"scatter) {ms:.3f} ms plain {plain_ms:.3f} ms; "
+                  f"max_abs_err {max_abs:.3e}; all eight gradients "
+                  "bit-identical over two calls; "
                   + rate_line(shape, dtype, True, ms, bound))
             print(f"[backward] {tag} vs float32 plain, per gradient "
                   "(max-rel, L2-rel): " + ", ".join(
@@ -513,15 +642,22 @@ def phase_backward(device) -> dict:
                       f"{worst:.2e} (tol {BWD_SAME_ROUNDING_TOL:.0e}), "
                       f"max_abs_err {max_abs:.3e}")
                 assert worst <= BWD_SAME_ROUNDING_TOL, same
+            del got, want
             report[tag] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                               run_to_run=run_to_run, bound=bound)
-    return report
+                               bound=bound)
+            scatter[tag] = check_scatter(
+                shape, dtype, device, dot=False, tag=tag,
+                library=name == f"hero_b{TRAIN_BATCH}")
+            print(f"[backward] {tag}: K2 without the scatter about "
+                  f"{ms - scatter[tag]['ms']:.3f} ms")
+    return report, scatter
 
 
 def _device_split(prof, steps: int) -> dict:
     """Device (self CUDA) time per step in ms, by kernel family."""
     families = (("K1", ("fused_sweep_mlp_kernel", "fused_sweep_mma_kernel")),
                 ("K2", ("fused_sweep_bwd", "sum_partials_kernel")),
+                ("scatter", ("sweep_scatter", "fixed_to_float")),
                 ("K1-dot", ("fused_sweep_dot_kernel",)),
                 ("K3", ("max_blur_pool",)),
                 ("convolution", ("conv", "cudnn", "dgrad", "wgrad", "fprop",
@@ -657,7 +793,8 @@ def phase_train(device) -> dict:
     opts = hero_options()
     (model, optimizer, batch, generator, losses, counts, step, changed,
      total) = train_steps(opts, device, "train")
-    assert_launches(counts, {"K1": TRAIN_STEPS, "K2": TRAIN_STEPS})
+    assert_launches(counts, {"K1": TRAIN_STEPS, "K2": TRAIN_STEPS,
+                             "scatter": TRAIN_STEPS})
     assert losses[-1] < losses[0], losses
     assert changed >= 0.95 * total, (changed, total)
     profile_steps(model, optimizer, batch, generator, step, "train")
@@ -680,7 +817,7 @@ def phase_dot_train(device) -> dict:
      total) = train_steps(dot_options(), device, "dot_train")
     assert type(model.cost_volume).__name__ == "DotProductCostVolume"
     assert_launches(counts, {"K1-dot": TRAIN_STEPS, "K3-fwd": TRAIN_STEPS,
-                             "K3-bwd": TRAIN_STEPS})
+                             "K3-bwd": TRAIN_STEPS, "scatter": TRAIN_STEPS})
     assert changed == total, (changed, total)
     profile_steps(model, optimizer, batch, generator, step, "dot_train",
                   ranges=("dot_sweep_backward",))
@@ -824,12 +961,26 @@ def phase_dot_kernel(device) -> dict:
                       f"features: L2-rel {rel:.2e} "
                       f"(tol {DOT_BF16_L2_TOL:.0e})")
                 assert rel <= DOT_BF16_L2_TOL, (tag, rel)
+            # the dot backward: d_cur in plain PyTorch, d_src by the scatter
+            g = sweep_cotangent(b, d, h * w, device, seed=2)
+            before = cuda_cv.sweep_scatter.launches
+            first = cuda_cv.dot_sweep_backward(*args, g)
+            second = cuda_cv.dot_sweep_backward(*args, g)
+            torch.cuda.synchronize()
+            assert cuda_cv.sweep_scatter.launches == before + 2
+            for grad, x, y in zip(("d_src", "d_cur"), first, second):
+                assert torch.isfinite(x).all() and torch.equal(x, y), (tag,
+                                                                       grad)
+            del first, second
+            line = (f"[dot_kernel] {tag}: dot backward bit-identical over "
+                    "two calls")
             if name == f"hero_b{TRAIN_BATCH}":
-                g = sweep_cotangent(b, d, h * w, device, seed=2)
                 bwd_ms = cuda_ms(lambda: cuda_cv.dot_sweep_backward(*args, g),
                                  reps=3, warmup=1)
-                print(f"[dot_kernel] {tag}: plain dot backward {bwd_ms:.3f} "
-                      "ms")
+                line += f"; {bwd_ms:.3f} ms"
+            print(line)
+            scatter = check_scatter(shape, dtype, device, dot=True, tag=tag)
+            entry["scatter"] = scatter
             report[tag] = entry
     return report
 
@@ -1131,7 +1282,7 @@ def phase_early_serve(device) -> dict:
         assert min(agree) >= SWEEPS_LOWEST_AGREE, (backend, agree)
 
     cur, src = b8_batch(hero_options(), device)
-    reps = 3
+    reps = 5
     for backend in HERO_SWEEPS:
         model = models[backend]
         with torch.no_grad():
@@ -1160,7 +1311,7 @@ def kernel_entry(name, source, replaces, launches_on_path, measured) -> dict:
             "replaces": replaces, "launches": launches_on_path,
             "max_abs_err": measured["max_abs_err"], "ms": measured["ms"],
             "plain_ms": measured["plain_ms"], "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": measured.get("library_ms")}
 
 
 def main():
@@ -1172,7 +1323,7 @@ def main():
     hero_infer = phase_hero(device)
     phase_card_vs_cpu(device, hero_options(image_height=192, image_width=256,
                                            precision="32"), "card_vs_cpu")
-    backward = phase_backward(device)
+    backward, scatter = phase_backward(device)
     trained = phase_train(device)
     phase_train_card_vs_cpu(
         device, hero_options(image_height=192, image_width=256,
@@ -1197,9 +1348,10 @@ def main():
               or m == "simplerecon_tpu" or m.startswith("simplerecon_tpu.")]
     assert not loaded, f"the port pulled in {loaded}"
 
-    # the training path's shapes: hero b16 for K1 and K2, the dot model's
-    # b16 for K1-dot, and its encoder's b16 stem for K3; K5 and K4 are
-    # inference-only: hero b8 (for K5 one of its two launches there)
+    # the training path's shapes: hero b16 for K1, K2 and the scatter of
+    # K2's d_src, the dot model's b16 for K1-dot, and its encoder's b16
+    # stem for K3; K5 and K4 are inference-only: hero b8 (for K5 one of
+    # its two launches there)
     b16 = f"hero_b{TRAIN_BATCH}_bfloat16"
     stem = f"encoder_b{TRAIN_BATCH}_{str(pool_dtype).split('.')[-1]}"
     hero_k, dot_k = trained["launches"], dot_trained["launches"]
@@ -1217,6 +1369,10 @@ def main():
                      "simplerecon_tpu_torch/csrc/fused_sweep_bwd.cu",
                      "simplerecon_tpu/ops/pallas_cv.py:1047", hero_k["K2"],
                      backward[b16]),
+        kernel_entry("sweep_scatter",
+                     "simplerecon_tpu_torch/csrc/sweep_scatter.cu",
+                     "simplerecon_tpu/ops/pallas_cv.py:1047",
+                     hero_k["scatter"], scatter[b16]),
         kernel_entry("fused_sweep_dot",
                      "simplerecon_tpu_torch/csrc/fused_sweep.cu",
                      "simplerecon_tpu/ops/pallas_cv.py:747", dot_k["K1-dot"],

@@ -26,12 +26,13 @@
 //   work items of 128 cells (128 reference pixels at one plane): all
 //   threads fill the bf16 input tile X (fill_inputs_bf16: 16-byte tap
 //   loads, samples rounded once, dot rows from the unrounded samples),
-//   then warp i runs rows [16i, 16i + 16): layer 0 from X and W0 in
-//   shared memory, h0 rounded into layer 1's A fragments in registers,
-//   layer 1 from W1, the head as a quad-shuffle dot with w2. Shared
-//   memory at hero widths: W0 56,576 B + W1 34,816 + X (128 x 216)
-//   55,296 + b0, b1, w2 1,536 = 148,224 B. Registers: 185 a thread
-//   (64 accumulators, 32 for h0's fragments), no spills (ptxas).
+//   then warp i runs rows [16i, 16i + 16) (`mlp_rows`, which K4 and K5
+//   share): layer 0 from X and W0 in shared memory, h0 rounded into
+//   layer 1's A fragments in registers, layer 1 from W1, the head as a
+//   quad-shuffle dot with w2. Shared memory at hero widths: W0 56,576 B
+//   + W1 34,816 + X (128 x 216) 55,296 + b0, b1, w2 1,536 = 148,224 B.
+//   Registers: 182 a thread (64 accumulators, 32 for h0's fragments),
+//   no spills (ptxas).
 // * float32, fused_sweep_mlp_kernel: the first design, unchanged. The
 //   card-against-CPU checks run it; tensor cores would take float32 as
 //   TF32 and change its numbers. One block per (pixel tile of 64, plane,
@@ -165,15 +166,6 @@ int launch(const void* src, const void* cur, const void* proj,
 }
 
 // ---- K1 in bf16: the MLP on the tensor cores (see the note above) -------
-constexpr int kMmaCells = 16 * (kMmaThreads / 32);
-
-inline size_t mma_smem_bytes(int cin) {
-  const int cinp = padded_cin(cin);
-  return ((size_t)(cinp + kHidden) * kWs + (size_t)kMmaCells * (cinp + 8)) *
-             sizeof(__nv_bfloat16) +
-         3 * kHidden * sizeof(float);
-}
-
 __global__ void __launch_bounds__(kMmaThreads, 1)
 fused_sweep_mma_kernel(const bf16* __restrict__ src,
                        const bf16* __restrict__ cur,
@@ -192,100 +184,22 @@ fused_sweep_mma_kernel(const bf16* __restrict__ src,
                        int c, int d, int vec8) {
   extern __shared__ uint4 smem_u4[];
   const int n = h * w;
-  const int cin = mlp_in_channels(k, c);
-  const int cinp = padded_cin(cin);
-  const int xs = cinp + 8;
-  bf16* W0 = reinterpret_cast<bf16*>(smem_u4);
-  bf16* W1 = W0 + cinp * kWs;
-  bf16* X = W1 + kHidden * kWs;
-  float* B0 = reinterpret_cast<float*>(X + kMmaCells * xs);
-  float* B1 = B0 + kHidden;
-  float* W2 = B1 + kHidden;
-
-  const int tid = threadIdx.x;
-  load_weights(W0, W1, w0, w1, cin);
-  for (int i = tid; i < kMmaCells * (xs - cin); i += kMmaThreads) {
-    X[(i / (xs - cin)) * xs + cin + i % (xs - cin)] = __float2bfloat16_rn(0.f);
-  }
-  for (int i = tid; i < kHidden; i += kMmaThreads) {
-    B0[i] = b0[i];
-    B1[i] = b1[i];
-    W2[i] = __bfloat162float(w2[i]);
-  }
-  const float bias2 = b2[0];
-  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int m0 = (tid >> 5) * 16;  // this warp's rows of X
-
+  const MlpTile s = load_mlp_tile(smem_u4, w0, b0, w1, b1, w2, b2,
+                                  mlp_in_channels(k, c));
   const int tiles = (n + kMmaCells - 1) / kMmaCells;
   for (int item = blockIdx.x; item < b * d * tiles; item += gridDim.x) {
     const int tile = item % tiles;
     const int di = (item / tiles) % d;
     const int bi = item / (tiles * d);
     const int p0 = tile * kMmaCells;
-    const float plane = planes[bi * d + di];
     __syncthreads();  // weights loaded; the previous item's X consumed
-    fill_inputs_bf16(X, xs, kMmaCells, src + (size_t)bi * k * n * c,
+    fill_inputs_bf16(s.X, s.xs, kMmaCells, src + (size_t)bi * k * n * c,
                      cur + (size_t)bi * n * c, proj + bi * k * 16,
-                     invK + bi * 16, plane, pose_meta + bi * k * 3,
-                     src_loc + bi * k * 3, p0, n, k, h, w, c, vec8 != 0);
+                     invK + bi * 16, planes[bi * d + di],
+                     pose_meta + bi * k * 3, src_loc + bi * k * 3, p0, n,
+                     k, h, w, c, vec8 != 0);
     __syncthreads();
-
-    // layer 0: h0 = round(lrelu(x W0 + b0)), 16 rows x 128 a warp
-    float acc[16][4];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    }
-    warp_product<16>(acc, X, xs, m0, W0, kWs, 0, cinp);
-    uint32_t a1[8][4];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const float2 bj = *reinterpret_cast<const float2*>(B0 + 8 * j + 2 * t);
-      acc[j][0] = leaky_relu(acc[j][0] + bj.x);
-      acc[j][1] = leaky_relu(acc[j][1] + bj.y);
-      acc[j][2] = leaky_relu(acc[j][2] + bj.x);
-      acc[j][3] = leaky_relu(acc[j][3] + bj.y);
-    }
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) accum_to_a(a1[kk], acc, kk);
-
-    // layer 1 from registers
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-#pragma unroll
-      for (int j = 0; j < 16; j += 2) {
-        uint32_t bf[4];
-        load_b(bf, W1, kWs, 16 * kk, 8 * j);
-        mma_bf16(acc[j], a1[kk], bf[0], bf[1]);
-        mma_bf16(acc[j + 1], a1[kk], bf[2], bf[3]);
-      }
-    }
-
-    // head: out = round(lrelu(h1p + b1)) . w2 + b2, rows g and g + 8
-    float lo = 0.f, hi = 0.f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = 8 * j + 2 * t;
-      const float2 bj = *reinterpret_cast<const float2*>(B1 + col);
-      const float2 wj = *reinterpret_cast<const float2*>(W2 + col);
-      lo = fmaf(round_to<bf16>(leaky_relu(acc[j][0] + bj.x)), wj.x, lo);
-      lo = fmaf(round_to<bf16>(leaky_relu(acc[j][1] + bj.y)), wj.y, lo);
-      hi = fmaf(round_to<bf16>(leaky_relu(acc[j][2] + bj.x)), wj.x, hi);
-      hi = fmaf(round_to<bf16>(leaky_relu(acc[j][3] + bj.y)), wj.y, hi);
-    }
-#pragma unroll
-    for (int s = 1; s < 4; s <<= 1) {
-      lo += __shfl_xor_sync(0xffffffffu, lo, s);
-      hi += __shfl_xor_sync(0xffffffffu, hi, s);
-    }
-    float* o = out + ((size_t)bi * d + di) * n;
-    const int p = p0 + m0 + g;
-    if (t == 0 && p < n) o[p] = lo + bias2;
-    if (t == 0 && p + 8 < n) o[p + 8] = hi + bias2;
+    mlp_tile_out(s, out + ((size_t)bi * d + di) * n + p0, n - p0);
   }
 }
 
@@ -300,11 +214,8 @@ int launch_mma(const void* src, const void* cur, const void* proj,
       fused_sweep_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long items = (long)b * d * ((h * w + kMmaCells - 1) / kMmaCells);
-  const int blocks = (int)(items < sms ? items : sms);
+  const int blocks =
+      persistent_blocks((long)b * d * ((h * w + kMmaCells - 1) / kMmaCells));
   const int vec8 = c % 8 == 0 &&
                    reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(cur) % 16 == 0;

@@ -8,17 +8,18 @@
 // launched by _banded_bwd_call, :946). That kernel warps with two-hot
 // matrix products over y-banded tiles and carries d_img, d_cur and the
 // weight gradients from one grid step to the next, because the TPU grid
-// runs in order. Here the taps are four direct loads, their transpose is
-// a scatter of float32 atomics per sample, and nothing carries between
-// blocks.
+// runs in order. Here the taps are four direct loads, nothing carries
+// between blocks, and the warp's transpose is a second kernel: this one
+// writes each sample's gradient, and sweep_scatter.cu sums them into
+// d_src in an order-free fixed-point form.
 //
 // What it computes per (pixel, plane): the recomputed forward (84.7
 // kFLOP of MLP) and its transposes, d_w2, d_h1p, d_w1 += h0 x r1, d_h0 =
 // r1 W1^T, d_h0p, d_w0 += x x r0 and d_x = r0 W0^T over the 135 rows
 // that carry gradient (sampled, reference and dot): 236.8 kFLOP, 2.98
 // TFLOP at hero b16, or 3.01 ms at the H100's 989 TFLOP/s of bf16
-// tensor cores. The scatter is 1.41 G float4 atomics at b16, which may
-// set the pace once the products are fast.
+// tensor cores. The sample gradients it writes for the scatter are
+// b*k*d*N*c values (2.8 GB in bf16 at b16, 0.84 ms of writes).
 //
 // Both kernels: persistent blocks, one per SM, walk pixel tiles of 32
 // (tile = blockIdx.x, += gridDim.x) and, for each tile, all d planes.
@@ -29,11 +30,13 @@
 //     in a fixed order; each block writes its partial sums once, and a
 //     second kernel adds the blocks' partials in block order: the same
 //     bits from run to run.
-//   * d_src is a scatter: every (pixel, plane, view) adds w_tap * d_s to
-//     its 4 taps, c channels each, with float4 atomicAdd (c % 4 == 0) or
-//     scalar atomics. That is d*N*k*4*c = 352 M float32 adds per hero
-//     frame, in 88 M float4 atomics, in no fixed order: d_src varies
-//     from run to run in its last bits.
+//   * d_src: every (pixel, plane, view) writes its sample gradient d_s
+//     (c values in T, rounded where the plain version rounds it) to the
+//     scratch d_s (b, k, d, N, c), and the largest |d_s| to d_s_max (an
+//     atomicMax on the float's bits, which orders non-negative floats as
+//     unsigned ints: order-free). The scatter (sweep_scatter.cu) then
+//     adds w_tap * d_s into d_src as 64-bit fixed-point integers scaled
+//     from that maximum: the same bits from run to run.
 // * bf16, fused_sweep_bwd_mma_kernel (the training step's): the products
 //   on the tensor cores (sweep_mma.cuh), 256 threads. Shared memory and
 //   registers are what bound the design; the count is in the note at the
@@ -41,8 +44,8 @@
 //   d_w0 is summed in shared memory, d_w1 in registers; h0, r1 and r0
 //   stay bf16 tiles that ldmatrix reads as they are or transposed, so
 //   no transposed copy of a weight is needed.
-// * float32, fused_sweep_bwd_kernel: the first design, unchanged, on the
-//   CUDA cores in float32 FMAs (bound by FMA issue): the card-against-CPU
+// * float32, fused_sweep_bwd_kernel: the first design, on the CUDA cores
+//   in float32 FMAs (bound by FMA issue): the card-against-CPU
 //   checks run it, and tensor cores would take float32 as TF32 and change
 //   its numbers. 256 threads; thread (j, half) owns hidden channel j and,
 //   in column products, pixels [16 half, 16 half + 16); d_w0 and d_w1
@@ -50,15 +53,16 @@
 //   rows half, half + 2, ...
 // Rounding points (T = compute dtype), the plain version's: the MLP input
 // and h0, h1 as in the forward; d_h1p and d_h0p before the products that
-// consume them; each sample gradient d_s before the scatter. Sums are
+// consume them; each sample gradient d_s before it is written. Sums are
 // float32; d_b0, d_b1 sum the unrounded d_h0p, d_h1p.
 //
 // Inputs: src (b,k,h,w,c), cur (b,N,c), w0 (C_in,128), w0t (128,C_in),
 // w1 and w1t (128,128), w2 (128,1) in T (w0t and w1t only for float32;
 // null for bf16); proj = K @ src_T_cur (b,k,4,4),
 // invK (b,4,4), planes (b,d), pose_meta (b,k,3), src_loc (b,k,3), b0, b1
-// and g (b,d,N) in float32. Outputs in float32: d_src (b,k,h,w,c),
-// zeroed by the caller; d_cur (b,N,c); d_params = [d_w0 (C_in,128) |
+// and g (b,d,N) in float32. Outputs: the sample gradients d_s
+// (b,k,d,N,c) in T and the bits of max |d_s| in d_s_max (zeroed by the
+// caller); in float32 d_cur (b,N,c) and d_params = [d_w0 (C_in,128) |
 // d_w1 (128,128) | d_b0 | d_b1 | d_w2 | d_b2]; partials (blocks, size of
 // d_params) is scratch.
 
@@ -208,8 +212,9 @@ fused_sweep_bwd_kernel(const T* __restrict__ src, const T* __restrict__ cur,
                        const T* __restrict__ w1, const T* __restrict__ w1t,
                        const float* __restrict__ b1,
                        const T* __restrict__ w2,
-                       const float* __restrict__ g,
-                       float* __restrict__ d_src, float* __restrict__ d_cur,
+                       const float* __restrict__ g, T* __restrict__ d_s,
+                       unsigned* __restrict__ d_s_max,
+                       float* __restrict__ d_cur,
                        float* __restrict__ partials, int b, int k, int h,
                        int w, int c, int d) {
   extern __shared__ float4 smem4[];
@@ -233,7 +238,7 @@ fused_sweep_bwd_kernel(const T* __restrict__ src, const T* __restrict__ cur,
   const int j = tid % kHidden;
   const int half = tid / kHidden;
   const int p_lo = half * kHalf;
-  const bool vec4 = (c % 4) == 0;
+  unsigned ds_max = 0u;  // bits of this thread's largest |d_s|
 
   for (int i = tid; i < (cin + kHidden) * kHidden; i += kThreads) {
     acc_w0[i] = 0.f;
@@ -375,10 +380,10 @@ fused_sweep_bwd_kernel(const T* __restrict__ src, const T* __restrict__ cur,
       }
       __syncthreads();
 
-      // ---- 6. the dot split and the warp transpose -----------------------
+      // ---- 6. the dot split and the sample gradients ---------------------
       // Item (p, view) owns rows view*c.. and dot row o_dot + view of
-      // column p: it reads d_x there and leaves the float32 sample and
-      // d_dot in their place for the d_cur sum of phase 7.
+      // column p: it reads d_x there, writes d_s, and leaves the float32
+      // sample and d_dot in their place for the d_cur sum of phase 7.
       for (int item = tid; item < kBwdTile * k; item += kThreads) {
         const int p = item % kBwdTile;
         const int view = item / kBwdTile;
@@ -393,36 +398,15 @@ fused_sweep_bwd_kernel(const T* __restrict__ src, const T* __restrict__ cur,
                       src_loc + (bi * k + view) * 3, rx, ry, rz, plane, h, w);
         const T* img = src + (size_t)(bi * k + view) * n * c;
         const T* cur_p = cur + ((size_t)bi * n + pix) * c;
-        float* dst = d_src + (size_t)(bi * k + view) * n * c;
+        T* ds_out = d_s + ((((size_t)bi * k + view) * d + di) * n + pix) * c;
         const float d_dot = X[(o_dot + view) * kBwdTile + p] * vg.mask;
         X[(o_dot + view) * kBwdTile + p] = d_dot;
-        for (int ch0 = 0; ch0 < c; ch0 += 4) {
-          const int nc = min(4, c - ch0);
-          float ds[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            if (e < nc) {
-              float* x = X + (view * c + ch0 + e) * kBwdTile + p;
-              ds[e] = round_to<T>(*x + d_dot * to_float(cur_p[ch0 + e]));
-              *x = sample(img, vg, c, ch0 + e);
-            }
-          }
-#pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            const float wt = vg.wt[t];
-            if (wt == 0.f) continue;
-            float* tap = dst + (size_t)vg.pix[t] * c + ch0;
-            if (vec4) {
-              atomicAdd(reinterpret_cast<float4*>(tap),
-                        make_float4(wt * ds[0], wt * ds[1], wt * ds[2],
-                                    wt * ds[3]));
-            } else {
-#pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                if (e < nc) atomicAdd(tap + e, wt * ds[e]);
-              }
-            }
-          }
+        for (int ch = 0; ch < c; ++ch) {
+          float* x = X + (view * c + ch) * kBwdTile + p;
+          const float ds = round_to<T>(*x + d_dot * to_float(cur_p[ch]));
+          *x = sample(img, vg, c, ch);
+          ds_out[ch] = ds;
+          ds_max = max(ds_max, __float_as_uint(fabsf(ds)));
         }
       }
       __syncthreads();
@@ -449,6 +433,9 @@ fused_sweep_bwd_kernel(const T* __restrict__ src, const T* __restrict__ cur,
     }
     __syncthreads();
   }
+
+  ds_max = __reduce_max_sync(0xffffffffu, ds_max);
+  if ((tid & 31) == 0) atomicMax(d_s_max, ds_max);
 
   // ---- the block's partial sums ------------------------------------------
   float* part = partials + (size_t)blockIdx.x * n_params;
@@ -486,7 +473,7 @@ fused_sweep_bwd_kernel(const T* __restrict__ src, const T* __restrict__ cur,
 //   the block's d_b0, d_b1, d_w2             1,536 B
 //   total                                  231,296 B
 // d_w1 (128 x 128): warp i owns rows [16i, 16i + 16), 64 float32
-// registers a thread for the block's whole run (236 registers a thread
+// registers a thread for the block's whole run (237 registers a thread
 // in all, no spills, by ptxas).
 // Warp i's tile of the (32 x 128) products (layer 0, layer 1, d_h0) is
 // rows [16 (i % 2), +16) x columns [32 (i / 2), +32); its threads keep
@@ -553,7 +540,8 @@ fused_sweep_bwd_mma_kernel(const bf16* __restrict__ src,
                            const float* __restrict__ b1,
                            const bf16* __restrict__ w2,
                            const float* __restrict__ g,
-                           float* __restrict__ d_src,
+                           bf16* __restrict__ d_s,
+                           unsigned* __restrict__ d_s_max,
                            float* __restrict__ d_cur,
                            float* __restrict__ partials, int b, int k,
                            int h, int w, int c, int d, int vec8) {
@@ -598,6 +586,7 @@ fused_sweep_bwd_mma_kernel(const bf16* __restrict__ src,
   }
   for (int i = tid; i < 3 * kHidden; i += kMmaThreads) SUMS[i] = 0.f;
   float db2 = 0.f;
+  unsigned ds_max = 0u;  // bits of this thread's largest |d_s|
   float dw1[16][4];
 #pragma unroll
   for (int j = 0; j < 16; ++j) dw1[j][0] = dw1[j][1] = dw1[j][2] = dw1[j][3] = 0.f;
@@ -610,7 +599,7 @@ fused_sweep_bwd_mma_kernel(const bf16* __restrict__ src,
     const bf16* cur_b = cur + (size_t)bi * n * c;
     const float* proj_b = proj + bi * k * 16;
     const float* ik = invK + bi * 16;
-    float* d_src_b = d_src + (size_t)bi * k * n * c;
+    bf16* d_s_b = d_s + (size_t)bi * k * d * n * c;
     __syncthreads();  // the previous tile's d_cur is written out
     for (int i = tid; i < M * c; i += kMmaThreads) DC[i] = 0.f;
 
@@ -826,9 +815,10 @@ fused_sweep_bwd_mma_kernel(const bf16* __restrict__ src,
       }
       __syncthreads();
 
-      // ---- 6. the dot split and the warp transpose -------------------------
+      // ---- 6. the dot split and the sample gradients -----------------------
       // Item (p, view) owns d_x's columns view*c.. and nf + view of row p:
-      // it leaves the float32 sample and d_dot there for phase 7.
+      // it writes d_s and leaves the float32 sample and d_dot there for
+      // phase 7.
       for (int item = tid; item < M * k; item += kMmaThreads) {
         const int p = item % M;
         const int view = item / M;
@@ -839,7 +829,7 @@ fused_sweep_bwd_mma_kernel(const bf16* __restrict__ src,
                                      ray.y * plane, ray.z * plane, h, w);
         const bf16* img = src_b + (size_t)view * n * c;
         const bf16* cur_p = cur_b + (size_t)pix * c;
-        float* dst = d_src_b + (size_t)view * n * c;
+        bf16* ds_out = d_s_b + (((size_t)view * d + di) * n + pix) * c;
         float* dx = DX + p * dxs;
         const float d_dot = dx[nf + view] * tp.mask;
         dx[nf + view] = d_dot;
@@ -853,18 +843,11 @@ fused_sweep_bwd_mma_kernel(const bf16* __restrict__ src,
               float* x = dx + view * c + ch0 + e;
               ds[e] = round_to<bf16>(*x + d_dot * cv[e]);
               *x = s[e];
+              ds_max = max(ds_max, __float_as_uint(fabsf(ds[e])));
             }
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const float wt = tp.wt[q];
-              if (wt == 0.f) continue;
-              float4* tap =
-                  reinterpret_cast<float4*>(dst + (size_t)tp.pix[q] * c + ch0);
-              atomicAdd(tap, make_float4(wt * ds[0], wt * ds[1], wt * ds[2],
-                                         wt * ds[3]));
-              atomicAdd(tap + 1, make_float4(wt * ds[4], wt * ds[5],
-                                             wt * ds[6], wt * ds[7]));
-            }
+            *reinterpret_cast<uint4*>(ds_out + ch0) =
+                make_uint4(pack_bf16(ds[0], ds[1]), pack_bf16(ds[2], ds[3]),
+                           pack_bf16(ds[4], ds[5]), pack_bf16(ds[6], ds[7]));
           }
         } else {
           for (int ch = 0; ch < c; ++ch) {
@@ -872,12 +855,8 @@ fused_sweep_bwd_mma_kernel(const bf16* __restrict__ src,
             const float ds =
                 round_to<bf16>(*x + d_dot * __bfloat162float(cur_p[ch]));
             *x = sample1(img, c, tp, ch);
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              if (tp.wt[q] != 0.f) {
-                atomicAdd(dst + (size_t)tp.pix[q] * c + ch, tp.wt[q] * ds);
-              }
-            }
+            ds_out[ch] = __float2bfloat16_rn(ds);
+            ds_max = max(ds_max, __float_as_uint(fabsf(ds)));
           }
         }
       }
@@ -900,6 +879,9 @@ fused_sweep_bwd_mma_kernel(const bf16* __restrict__ src,
       if (p0 + item / c < n) d_cur[((size_t)bi * n + p0) * c + item] = DC[item];
     }
   }
+
+  ds_max = __reduce_max_sync(0xffffffffu, ds_max);
+  if (lane == 0) atomicMax(d_s_max, ds_max);
 
   // ---- the block's partial sums ------------------------------------------
   __syncthreads();
@@ -940,9 +922,9 @@ int launch_bwd(const void* src, const void* cur, const void* proj,
                const void* invK, const void* planes, const void* pose_meta,
                const void* src_loc, const void* w0, const void* w0t,
                const void* b0, const void* w1, const void* w1t,
-               const void* b1, const void* w2, const void* g, void* d_src,
-               void* d_cur, void* partials, void* d_params, int blocks,
-               int b, int k, int h, int w, int c, int d,
+               const void* b1, const void* w2, const void* g, void* d_s,
+               void* d_s_max, void* d_cur, void* partials, void* d_params,
+               int blocks, int b, int k, int h, int w, int c, int d,
                cudaStream_t stream) {
   const int cin = (k + 1) * c + 10 * k + 4;
   const int n_params = cin * kHidden + kHidden * kHidden + 3 * kHidden + 1;
@@ -961,9 +943,9 @@ int launch_bwd(const void* src, const void* cur, const void* proj,
       static_cast<const T*>(w0t), static_cast<const float*>(b0),
       static_cast<const T*>(w1), static_cast<const T*>(w1t),
       static_cast<const float*>(b1), static_cast<const T*>(w2),
-      static_cast<const float*>(g), static_cast<float*>(d_src),
-      static_cast<float*>(d_cur), static_cast<float*>(partials), b, k, h, w,
-      c, d);
+      static_cast<const float*>(g), static_cast<T*>(d_s),
+      static_cast<unsigned*>(d_s_max), static_cast<float*>(d_cur),
+      static_cast<float*>(partials), b, k, h, w, c, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   sum_partials_kernel<<<(n_params + 255) / 256, 256, 0, stream>>>(
@@ -977,9 +959,9 @@ int launch_bwd_mma(const void* src, const void* cur, const void* proj,
                    const void* pose_meta, const void* src_loc,
                    const void* w0, const void* b0, const void* w1,
                    const void* b1, const void* w2, const void* g,
-                   void* d_src, void* d_cur, void* partials, void* d_params,
-                   int blocks, int b, int k, int h, int w, int c, int d,
-                   cudaStream_t stream) {
+                   void* d_s, void* d_s_max, void* d_cur, void* partials,
+                   void* d_params, int blocks, int b, int k, int h, int w,
+                   int c, int d, cudaStream_t stream) {
   const int cin = mlp_in_channels(k, c);
   const int n_params = cin * kHidden + kHidden * kHidden + 3 * kHidden + 1;
   const size_t smem = bwd_mma_smem_bytes(k, c);
@@ -990,7 +972,7 @@ int launch_bwd_mma(const void* src, const void* cur, const void* proj,
   const int vec8 = c % 8 == 0 &&
                    reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(cur) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(d_src) % 16 == 0;
+                   reinterpret_cast<uintptr_t>(d_s) % 16 == 0;
   fused_sweep_bwd_mma_kernel<<<blocks, kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(src), static_cast<const bf16*>(cur),
       static_cast<const float*>(proj), static_cast<const float*>(invK),
@@ -998,9 +980,9 @@ int launch_bwd_mma(const void* src, const void* cur, const void* proj,
       static_cast<const float*>(src_loc), static_cast<const bf16*>(w0),
       static_cast<const float*>(b0), static_cast<const bf16*>(w1),
       static_cast<const float*>(b1), static_cast<const bf16*>(w2),
-      static_cast<const float*>(g), static_cast<float*>(d_src),
-      static_cast<float*>(d_cur), static_cast<float*>(partials), b, k, h, w,
-      c, d, vec8);
+      static_cast<const float*>(g), static_cast<bf16*>(d_s),
+      static_cast<unsigned*>(d_s_max), static_cast<float*>(d_cur),
+      static_cast<float*>(partials), b, k, h, w, c, d, vec8);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   sum_partials_kernel<<<(n_params + 255) / 256, 256, 0, stream>>>(
@@ -1017,19 +999,20 @@ extern "C" int fused_sweep_mlp_bwd(
     const void* invK, const void* planes, const void* pose_meta,
     const void* src_loc, const void* w0, const void* w0t, const void* b0,
     const void* w1, const void* w1t, const void* b1, const void* w2,
-    const void* g, void* d_src, void* d_cur, void* partials, void* d_params,
-    int blocks, int b, int k, int h, int w, int c, int d, void* stream) {
+    const void* g, void* d_s, void* d_s_max, void* d_cur, void* partials,
+    void* d_params, int blocks, int b, int k, int h, int w, int c, int d,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     return launch_bwd<float>(src, cur, proj, invK, planes, pose_meta,
-                             src_loc, w0, w0t, b0, w1, w1t, b1, w2, g, d_src,
-                             d_cur, partials, d_params, blocks, b, k, h, w,
-                             c, d, s);
+                             src_loc, w0, w0t, b0, w1, w1t, b1, w2, g, d_s,
+                             d_s_max, d_cur, partials, d_params, blocks, b,
+                             k, h, w, c, d, s);
   }
   if (dtype == 1) {
     return launch_bwd_mma(src, cur, proj, invK, planes, pose_meta, src_loc,
-                          w0, b0, w1, b1, w2, g, d_src, d_cur, partials,
-                          d_params, blocks, b, k, h, w, c, d, s);
+                          w0, b0, w1, b1, w2, g, d_s, d_s_max, d_cur,
+                          partials, d_params, blocks, b, k, h, w, c, d, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,11 +1,13 @@
 // What the sweep kernels share. The float32 CUDA-core forward sweeps, K1
-// (fused_sweep.cu, fused_sweep_mlp_kernel; K4 and K5 in both dtypes,
-// early_sweeps.cu) share `project`, the projection of a plane point into
-// a source view (K1's and K4's), the metadata rows and the MLP below.
-// K1, K1-dot and K2 share `project_taps` and `bilinear`. The bf16
-// tensor-core kernels of K1 and K2 share the last section: the weight
-// copy and the bf16 input tile (`fill_inputs_bf16`), with the mma tile of
-// sweep_mma.cuh.
+// (fused_sweep.cu, fused_sweep_mlp_kernel; K4 and K5, early_sweeps.cu)
+// share `project`, the projection of a plane point into a source view
+// (K1's and K4's), the metadata rows and the MLP below. K1, K1-dot, K2
+// and the scatter of the sweeps' gradient (sweep_scatter.cu) share
+// `project_taps` and `bilinear`. The bf16 tensor-core kernels share the
+// last section: the bf16 input tile's metadata values, K1's and K2's
+// fill of it (`fill_inputs_bf16`), the weight copy, and the shared
+// memory and MLP call of the forward kernels K1, K4 and K5 (`MlpTile`),
+// around the mma tile of sweep_mma.cuh.
 //
 // A CUDA-core sweep kernel's block owns one tile of kTile reference
 // pixels at one (batch, plane) and runs kHidden threads.
@@ -43,7 +45,6 @@
 
 namespace {
 
-constexpr int kHidden = 128;  // MLP width == threads per block
 constexpr int kTile = 64;     // pixels per block
 constexpr int kRow = 68;      // shared-memory row stride in floats
 
@@ -59,11 +60,7 @@ template <>
 __device__ __forceinline__ float round_to<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ float leaky_relu(float x) {
-  return x > 0.f ? x : 0.01f * x;
+  return round_bf16(x);
 }
 
 // MLP input width for k source views of c channels.
@@ -284,7 +281,6 @@ __device__ __forceinline__ void mlp_tail(float* rows, int cin,
 // the values that the float32 row layout holds, rounded where K1 rounds.
 
 constexpr int kMmaThreads = 256;   // 8 warps a block
-constexpr int kWs = kHidden + 8;   // weight row stride in shared memory
 
 // C_in padded with zero rows to the products' k-step of 16, keeping at
 // least one zero row (K2's d_x points its padding columns there).
@@ -308,9 +304,8 @@ __device__ __forceinline__ void load_weights(
   copy_wait();
 }
 
-// Loads 8 bf16 from a 16-byte-aligned address as float32.
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
+// The 8 bf16 of u as float32.
+__device__ __forceinline__ void unpack8(const uint4& u, float (&v)[8]) {
   const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
@@ -318,6 +313,11 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
     v[2 * e] = f.x;
     v[2 * e + 1] = f.y;
   }
+}
+
+// Loads 8 bf16 from a 16-byte-aligned address as float32.
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
+  unpack8(*reinterpret_cast<const uint4*>(p), v);
 }
 
 // The float32 samples of channels [ch0, ch0 + 8) of one view's taps
@@ -352,18 +352,76 @@ __device__ __forceinline__ float sample1(const __nv_bfloat16* img, int c,
                   __bfloat162float(img[(size_t)t.pix[3] * c + ch]));
 }
 
+// The values of `view_meta_rows` for one (cell, view), rounded to bf16
+// into the cell's row x of X: mask, depth, dot * mask, the angle between
+// the unit rays from the reference camera and from the source camera
+// centre lv to the plane point ray * plane, and that source ray. `ray` is
+// the reference pixel's unnormalised ray; meta is the first metadata
+// column, (k + 1) * c.
+__device__ __forceinline__ void view_meta_bf16(bf16* x, int meta, int k,
+                                               int view, float mask,
+                                               float depth, float dot,
+                                               float3 ray, float plane,
+                                               const float* lv) {
+  const float rx = ray.x, ry = ray.y, rz = ray.z;
+  const float wx = rx * plane, wy = ry * plane, wz = rz * plane;
+  const float ref_inv = 1.0f / sqrtf(rx * rx + ry * ry + rz * rz + 1e-30f);
+  const float sx = wx - lv[0], sy = wy - lv[1], sz = wz - lv[2];
+  const float src_inv = 1.0f / sqrtf(sx * sx + sy * sy + sz * sz + 1e-30f);
+  const float angle =
+      (rx * ref_inv) * (sx * src_inv) + (ry * ref_inv) * (sy * src_inv) +
+      (rz * ref_inv) * (sz * src_inv);
+  x[meta + view] = __float2bfloat16_rn(mask);
+  x[meta + k + view] = __float2bfloat16_rn(depth);
+  x[meta + 2 * k + 1 + view] = __float2bfloat16_rn(dot * mask);
+  x[meta + 3 * k + 1 + view] = __float2bfloat16_rn(angle);
+  const int sray = meta + 4 * k + 4 + 3 * view;
+  x[sray + 0] = __float2bfloat16_rn(sx * src_inv);
+  x[sray + 1] = __float2bfloat16_rn(sy * src_inv);
+  x[sray + 2] = __float2bfloat16_rn(sz * src_inv);
+}
+
+// The values of `pixel_meta_rows` for one cell into its row x of X: the
+// reference features cur_p (c values, copied; vec8: 16-byte copies), the
+// plane depth, the unit reference ray and the pose columns [penalty(k),
+// R(k), t(k)] from pose (k, 3).
+__device__ __forceinline__ void pixel_meta_bf16(bf16* x, int meta, int k,
+                                                int c, const bf16* cur_p,
+                                                float3 ray, float plane,
+                                                const float* pose,
+                                                bool vec8) {
+  if (vec8) {
+    for (int ch0 = 0; ch0 < c; ch0 += 8) {
+      *reinterpret_cast<uint4*>(x + k * c + ch0) =
+          *reinterpret_cast<const uint4*>(cur_p + ch0);
+    }
+  } else {
+    for (int ch = 0; ch < c; ++ch) x[k * c + ch] = cur_p[ch];
+  }
+  const float rx = ray.x, ry = ray.y, rz = ray.z;
+  const float ref_inv = 1.0f / sqrtf(rx * rx + ry * ry + rz * rz + 1e-30f);
+  x[meta + 2 * k] = __float2bfloat16_rn(plane);
+  x[meta + 4 * k + 1] = __float2bfloat16_rn(rx * ref_inv);
+  x[meta + 4 * k + 2] = __float2bfloat16_rn(ry * ref_inv);
+  x[meta + 4 * k + 3] = __float2bfloat16_rn(rz * ref_inv);
+  for (int jv = 0; jv < 3 * k; ++jv) {
+    const int j = jv / k, view = jv % k;
+    x[meta + 7 * k + 4 + jv] = __float2bfloat16_rn(pose[view * 3 + j]);
+  }
+}
+
 // Fills rows [0, M) of X: row m is reference pixel min(p0 + m, n - 1) at
 // depth `plane` (a ragged last tile repeats the last pixel; the caller
 // drops its results). src (k, h*w, c), cur (h*w, c), proj (k, 4, 4),
 // ik (4, 4), pose (k, 3) and loc (k, 3) are one batch element's. Columns
-// [cin, xs) are not written: the caller zeroes them once. vec8: c % 8 ==
+// [cin, xs) are not written: the caller zeroes them. vec8: c % 8 ==
 // 0 and src, cur 16-byte aligned, so taps are 16-byte loads. Samples are
 // float32 from the bf16 maps, rounded once into X; the dot rows come from
 // the unrounded samples, as in K1's float32 layout. Every thread of the
 // block calls it.
 __device__ __forceinline__ void fill_inputs_bf16(
-    __nv_bfloat16* X, int xs, int M, const __nv_bfloat16* __restrict__ src,
-    const __nv_bfloat16* __restrict__ cur, const float* __restrict__ proj,
+    bf16* X, int xs, int M, const bf16* __restrict__ src,
+    const bf16* __restrict__ cur, const float* __restrict__ proj,
     const float* __restrict__ ik, float plane,
     const float* __restrict__ pose, const float* __restrict__ loc, int p0,
     int n, int k, int h, int w, int c, bool vec8) {
@@ -371,31 +429,11 @@ __device__ __forceinline__ void fill_inputs_bf16(
   // one loop over M * k (pixel, view) items, then M pixel items, so every
   // thread takes about the same share of the loads
   for (int item = threadIdx.x; item < M * (k + 1); item += blockDim.x) {
-    if (item >= M * k) {  // pixel_meta_rows' values
+    if (item >= M * k) {
       const int m = item - M * k;
       const int pix = min(p0 + m, n - 1);
-      const __nv_bfloat16* cur_p = cur + (size_t)pix * c;
-      __nv_bfloat16* x = X + m * xs;
-      if (vec8) {
-        for (int ch0 = 0; ch0 < c; ch0 += 8) {
-          *reinterpret_cast<uint4*>(x + k * c + ch0) =
-              *reinterpret_cast<const uint4*>(cur_p + ch0);
-        }
-      } else {
-        for (int ch = 0; ch < c; ++ch) x[k * c + ch] = cur_p[ch];
-      }
-      const float3 ray = pixel_ray(ik, pix, w);
-      const float rx = ray.x, ry = ray.y, rz = ray.z;
-      const float ref_inv =
-          1.0f / sqrtf(rx * rx + ry * ry + rz * rz + 1e-30f);
-      x[meta + 2 * k] = __float2bfloat16_rn(plane);
-      x[meta + 4 * k + 1] = __float2bfloat16_rn(rx * ref_inv);
-      x[meta + 4 * k + 2] = __float2bfloat16_rn(ry * ref_inv);
-      x[meta + 4 * k + 3] = __float2bfloat16_rn(rz * ref_inv);
-      for (int jv = 0; jv < 3 * k; ++jv) {
-        const int j = jv / k, view = jv % k;
-        x[meta + 7 * k + 4 + jv] = __float2bfloat16_rn(pose[view * 3 + j]);
-      }
+      pixel_meta_bf16(X + m * xs, meta, k, c, cur + (size_t)pix * c,
+                      pixel_ray(ik, pix, w), plane, pose, vec8);
       continue;
     }
     const int m = item % M;
@@ -404,9 +442,9 @@ __device__ __forceinline__ void fill_inputs_bf16(
     const float3 ray = pixel_ray(ik, pix, w);
     const Taps t = project_taps(proj + view * 16, ray.x * plane,
                                 ray.y * plane, ray.z * plane, h, w);
-    const __nv_bfloat16* img = src + (size_t)view * n * c;
-    const __nv_bfloat16* cur_p = cur + (size_t)pix * c;
-    __nv_bfloat16* x = X + m * xs;
+    const bf16* img = src + (size_t)view * n * c;
+    const bf16* cur_p = cur + (size_t)pix * c;
+    bf16* x = X + m * xs;
     float dot = 0.f;
     if (vec8) {
       for (int ch0 = 0; ch0 < c; ch0 += 8) {
@@ -426,25 +464,85 @@ __device__ __forceinline__ void fill_inputs_bf16(
         dot = fmaf(s, __bfloat162float(cur_p[ch]), dot);
       }
     }
-    // view_meta_rows' values
-    const float rx = ray.x, ry = ray.y, rz = ray.z;
-    const float wx = rx * plane, wy = ry * plane, wz = rz * plane;
-    const float ref_inv = 1.0f / sqrtf(rx * rx + ry * ry + rz * rz + 1e-30f);
-    const float* lv = loc + view * 3;
-    const float sx = wx - lv[0], sy = wy - lv[1], sz = wz - lv[2];
-    const float src_inv = 1.0f / sqrtf(sx * sx + sy * sy + sz * sz + 1e-30f);
-    const float angle =
-        (rx * ref_inv) * (sx * src_inv) + (ry * ref_inv) * (sy * src_inv) +
-        (rz * ref_inv) * (sz * src_inv);
-    x[meta + view] = __float2bfloat16_rn(t.mask);
-    x[meta + k + view] = __float2bfloat16_rn(t.z_eps);
-    x[meta + 2 * k + 1 + view] = __float2bfloat16_rn(dot * t.mask);
-    x[meta + 3 * k + 1 + view] = __float2bfloat16_rn(angle);
-    const int sray = meta + 4 * k + 4 + 3 * view;
-    x[sray + 0] = __float2bfloat16_rn(sx * src_inv);
-    x[sray + 1] = __float2bfloat16_rn(sy * src_inv);
-    x[sray + 2] = __float2bfloat16_rn(sz * src_inv);
+    view_meta_bf16(x, meta, k, view, t.mask, t.z_eps, dot, ray, plane,
+                   loc + view * 3);
   }
+}
+
+// ---- the forward tensor-core kernels (K1, K4 and K5 in bf16) -----------
+// Persistent blocks of kMmaThreads, one an SM, walk work items of
+// kMmaCells cells; per item, every thread fills X, then warp i runs the
+// MLP of rows [16i, 16i + 16) (`mlp_rows`). Shared memory at hero widths
+// (C_in = 202, padded to 208): W0 56,576 B + W1 34,816 + X (128 x 216)
+// 55,296 + b0, b1, w2 1,536 = 148,224 B.
+constexpr int kMmaCells = 16 * (kMmaThreads / 32);
+
+inline size_t mma_smem_bytes(int cin) {
+  const int cinp = padded_cin(cin);
+  return ((size_t)(cinp + kHidden) * kWs + (size_t)kMmaCells * (cinp + 8)) *
+             sizeof(bf16) +
+         3 * kHidden * sizeof(float);
+}
+
+// Blocks of a persistent kernel with `items` work items: one an SM, or
+// one an item.
+inline int persistent_blocks(long items) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return (int)(items < sms ? items : sms);
+}
+
+// The MLP's operands in shared memory: weights, biases, w2 and the input
+// tile X (kMmaCells rows of xs elements), and b2.
+struct MlpTile {
+  bf16 *W0, *W1, *X;
+  float *B0, *B1, *W2;
+  int cinp, xs;
+  float b2;
+};
+
+// Lays out the shared memory `smem` (mma_smem_bytes(cin) bytes), copies
+// the weights, biases and w2 into it and zeroes X's columns [cin, xs),
+// which no fill writes. Every thread of the block calls it; the caller
+// syncs before the first fill.
+__device__ __forceinline__ MlpTile load_mlp_tile(
+    void* smem, const bf16* __restrict__ w0, const float* __restrict__ b0,
+    const bf16* __restrict__ w1, const float* __restrict__ b1,
+    const bf16* __restrict__ w2, const float* __restrict__ b2, int cin) {
+  MlpTile s;
+  s.cinp = padded_cin(cin);
+  s.xs = s.cinp + 8;
+  s.W0 = static_cast<bf16*>(smem);
+  s.W1 = s.W0 + s.cinp * kWs;
+  s.X = s.W1 + kHidden * kWs;
+  s.B0 = reinterpret_cast<float*>(s.X + kMmaCells * s.xs);
+  s.B1 = s.B0 + kHidden;
+  s.W2 = s.B1 + kHidden;
+  s.b2 = b2[0];
+  load_weights(s.W0, s.W1, w0, w1, cin);
+  const int pad = s.xs - cin;
+  for (int i = threadIdx.x; i < kMmaCells * pad; i += blockDim.x) {
+    s.X[(i / pad) * s.xs + cin + i % pad] = __float2bfloat16_rn(0.f);
+  }
+  for (int i = threadIdx.x; i < kHidden; i += blockDim.x) {
+    s.B0[i] = b0[i];
+    s.B1[i] = b1[i];
+    s.W2[i] = __bfloat162float(w2[i]);
+  }
+  return s;
+}
+
+// After a fill of X (and a __syncthreads): the scores of the item's cells
+// [0, valid) into out[0 .. valid). Every thread of the block calls it.
+__device__ __forceinline__ void mlp_tile_out(const MlpTile& s, float* out,
+                                             int valid) {
+  const int lane = threadIdx.x & 31, g = lane >> 2;
+  const int m0 = (threadIdx.x >> 5) * 16;  // this warp's rows of X
+  const float2 o = mlp_rows(s.X, s.xs, m0, s.cinp, s.W0, s.W1, s.B0, s.B1,
+                            s.W2);
+  if ((lane & 3) == 0 && m0 + g < valid) out[m0 + g] = o.x + s.b2;
+  if ((lane & 3) == 0 && m0 + g + 8 < valid) out[m0 + g + 8] = o.y + s.b2;
 }
 
 }  // namespace

@@ -1,8 +1,9 @@
 // The warp-level bf16 tile that the bf16 sweep kernels (K1 in
-// fused_sweep.cu, K2 in fused_sweep_bwd.cu) run their MLP products on:
-// mma.sync m16n8k16 with bf16 operands and float32 accumulation, fed by
-// ldmatrix from shared memory. Raw PTX, no CUTLASS, so nvcc stays at
-// seconds.
+// fused_sweep.cu, K2 in fused_sweep_bwd.cu, K4 and K5 in early_sweeps.cu)
+// run their MLP products on: mma.sync m16n8k16 with bf16 operands and
+// float32 accumulation, fed by ldmatrix from shared memory. Raw PTX, no
+// CUTLASS, so nvcc stays at seconds. `mlp_rows` at the end is the forward
+// MLP that K1, K4 and K5 share.
 //
 // The JAX kernels run the same products as bf16 matrix products with
 // float32 accumulation (simplerecon_tpu/ops/pallas_cv.py:343-350 forward,
@@ -36,6 +37,13 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
+constexpr int kHidden = 128;       // MLP width
+constexpr int kWs = kHidden + 8;   // weight row stride in shared memory
+
+__device__ __forceinline__ float leaky_relu(float x) {
+  return x > 0.f ? x : 0.01f * x;
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -65,6 +73,11 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
       "{%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Rounds a float32 value to bf16 (round to nearest even) and back.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -166,6 +179,77 @@ __device__ __forceinline__ void copy_rows(bf16* dst, int s,
 
 __device__ __forceinline__ void copy_wait() {
   asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// The MLP C_in -> 128 -> 128 -> 1 with LeakyReLU(0.01) of one warp's 16
+// rows [m0, m0 + 16) of the bf16 input tile X (xs elements a row, its
+// first cinp columns read; cinp a multiple of 16). W0 (cinp rows) and W1
+// (128 rows) are bf16 in shared memory, kWs elements a row; b0, b1 and
+// w2 float32 in shared memory. Layer 0 from X and W0; h0 =
+// round(lrelu(x W0 + b0)) goes into layer 1's A fragments in registers
+// (`accum_to_a`); layer 1 from W1; the head round(lrelu(h1p + b1)) . w2
+// as a dot over each quad's columns, then a quad shuffle. Returns the
+// scores of rows m0 + g and m0 + g + 8 (g = lane / 4) without b2; every
+// lane of a quad holds them. Every lane of the warp calls it.
+__device__ __forceinline__ float2 mlp_rows(const bf16* X, int xs, int m0,
+                                           int cinp, const bf16* W0,
+                                           const bf16* W1, const float* B0,
+                                           const float* B1,
+                                           const float* W2) {
+  const int t = threadIdx.x & 3;
+  // layer 0: h0 = round(lrelu(x W0 + b0)), 16 rows x 128
+  float acc[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  }
+  warp_product<16>(acc, X, xs, m0, W0, kWs, 0, cinp);
+  uint32_t a1[8][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const float2 bj = *reinterpret_cast<const float2*>(B0 + 8 * j + 2 * t);
+    acc[j][0] = leaky_relu(acc[j][0] + bj.x);
+    acc[j][1] = leaky_relu(acc[j][1] + bj.y);
+    acc[j][2] = leaky_relu(acc[j][2] + bj.x);
+    acc[j][3] = leaky_relu(acc[j][3] + bj.y);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) accum_to_a(a1[kk], acc, kk);
+
+  // layer 1 from registers
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  }
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+    for (int j = 0; j < 16; j += 2) {
+      uint32_t bf[4];
+      load_b(bf, W1, kWs, 16 * kk, 8 * j);
+      mma_bf16(acc[j], a1[kk], bf[0], bf[1]);
+      mma_bf16(acc[j + 1], a1[kk], bf[2], bf[3]);
+    }
+  }
+
+  // head: round(lrelu(h1p + b1)) . w2, rows g and g + 8
+  float lo = 0.f, hi = 0.f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = 8 * j + 2 * t;
+    const float2 bj = *reinterpret_cast<const float2*>(B1 + col);
+    const float2 wj = *reinterpret_cast<const float2*>(W2 + col);
+    lo = fmaf(round_bf16(leaky_relu(acc[j][0] + bj.x)), wj.x, lo);
+    lo = fmaf(round_bf16(leaky_relu(acc[j][1] + bj.y)), wj.y, lo);
+    hi = fmaf(round_bf16(leaky_relu(acc[j][2] + bj.x)), wj.x, hi);
+    hi = fmaf(round_bf16(leaky_relu(acc[j][3] + bj.y)), wj.y, hi);
+  }
+#pragma unroll
+  for (int s = 1; s < 4; s <<= 1) {
+    lo += __shfl_xor_sync(0xffffffffu, lo, s);
+    hi += __shfl_xor_sync(0xffffffffu, hi, s);
+  }
+  return make_float2(lo, hi);
 }
 
 }  // namespace

@@ -104,8 +104,10 @@ def load_library() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.fused_sweep_mlp.argtypes = [ci] + [vp] * 14 + [ci] * 6 + [vp]
     lib.fused_sweep_mlp.restype = ci
-    lib.fused_sweep_mlp_bwd.argtypes = [ci] + [vp] * 19 + [ci] * 7 + [vp]
+    lib.fused_sweep_mlp_bwd.argtypes = [ci] + [vp] * 20 + [ci] * 7 + [vp]
     lib.fused_sweep_mlp_bwd.restype = ci
+    lib.sweep_scatter.argtypes = [ci, ci] + [vp] * 9 + [ci] * 6 + [vp]
+    lib.sweep_scatter.restype = ci
     lib.fused_sweep_dot.argtypes = [ci] + [vp] * 6 + [ci] * 6 + [vp]
     lib.fused_sweep_dot.restype = ci
     lib.fused_feature_volume.argtypes = [ci] + [vp] * 15 + [ci] * 5 + [vp]

@@ -25,16 +25,23 @@ PyTorch version with the same rounding points, only for CPU tensors.
 replaces `banded_warp_feature_volume_bwd` (body `_banded_bwd_kernel`,
 launched by `_banded_bwd_call`); its plain version is
 `fused_sweep_backward_reference`. `FusedSweep` joins the two as a
-`torch.autograd.Function`.
+`torch.autograd.Function`. On the card K2 writes each sample's gradient,
+and `sweep_scatter` (`csrc/sweep_scatter.cu`) sums them into d_src as
+64-bit fixed-point integers, whose sum does not depend on the order of
+the additions: d_src has the same bits on every run, as the JAX kernel's
+sequential grid gives. Its plain version is `sweep_scatter_reference`.
 
 `dot_sweep` is the dot-product model's cost volume (K1-dot, the
 `fused_sweep_dot` entry of `csrc/fused_sweep.cu`), which replaces
 `banded_warp_dot_volume` (the same `_banded_kernel` in mode "dot"); its
 plain version is `dot_sweep_reference`. `DotSweep` makes it
-differentiable with a plain PyTorch backward, `dot_sweep_backward`.
+differentiable with `dot_sweep_backward`, plain PyTorch but for its
+scatter, which on the card is `sweep_scatter`.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -212,12 +219,12 @@ def fused_sweep_backward_reference(src_feats_bkhwc, cur_bNc,
     return d_src, d_cur, d_w0, d_b0, d_w1, d_b1, d_w2, d_b2
 
 
-def _scatter_taps_(d_src_rows, d_s_bkdNc, pix_bkdN2, h: int, w: int):
-    """Adds the bilinear transpose of (b, k, dc, N, c) sample gradients
-    at pixel coords (u, v) into (b*k*h*w, c) rows: each of the four taps
-    at index coords (u - 0.5, v - 0.5) inside the image gets its weight
-    times the gradient, as the kernels sample."""
-    b, k, dc, n, c = d_s_bkdNc.shape
+def _taps(pix_bkdN2, h: int, w: int):
+    """Yields the four bilinear taps of (b, k, dc, N) pixel coords (u, v)
+    at index coords (u - 0.5, v - 0.5), as the kernels sample: each tap's
+    row in (b*k*h*w) rows (0 outside the image) and its weight (0
+    outside)."""
+    b, k = pix_bkdN2.shape[:2]
     ix = pix_bkdN2[..., 0] - 0.5
     iy = pix_bkdN2[..., 1] - 0.5
     x0, y0 = torch.floor(ix), torch.floor(iy)
@@ -228,9 +235,168 @@ def _scatter_taps_(d_src_rows, d_s_bkdNc, pix_bkdN2, h: int, w: int):
                         (x0, y0 + 1, (x0 + 1 - ix) * (iy - y0)),
                         (x0 + 1, y0 + 1, (ix - x0) * (iy - y0))):
         valid = (xt >= 0) & (xt <= w - 1) & (yt >= 0) & (yt <= h - 1)
-        idx = base + torch.where(valid, yt * w + xt, 0.0).long()
-        vals = d_s_bkdNc * torch.where(valid, wgt, 0.0)[..., None]
+        yield (base + torch.where(valid, yt * w + xt, 0.0).long(),
+               torch.where(valid, wgt, 0.0))
+
+
+def _scatter_taps_(d_src_rows, d_s_bkdNc, pix_bkdN2, h: int, w: int):
+    """Adds the bilinear transpose of (b, k, dc, N, c) sample gradients
+    at pixel coords (u, v) into (b*k*h*w, c) float32 rows: each of the
+    four taps inside the image gets its weight times the gradient
+    (`index_add_`, which sums with atomics in no fixed order on a
+    card)."""
+    c = d_s_bkdNc.shape[-1]
+    for idx, wgt in _taps(pix_bkdN2, h, w):
+        vals = d_s_bkdNc * wgt[..., None]
         d_src_rows.index_add_(0, idx.reshape(-1), vals.reshape(-1, c))
+
+
+def fixed_point_shift(max_abs: float, count: int) -> int:
+    """S of the fixed-point sums of `sweep_scatter`: with max_abs < 2^e
+    and count <= 2^L, 62 - L - e, so that count contributions of at most
+    max_abs each, scaled by 2^S, sum within 2^62; clamped to [-100, 100]
+    (2^S and 2^-S stay normal float32); 0 for a max_abs of 0 or not
+    finite."""
+    if not max_abs > 0 or not math.isfinite(max_abs):
+        return 0
+    e = math.frexp(max_abs)[1]
+    return min(max(62 - (count - 1).bit_length() - e, -100), 100)
+
+
+def _scatter_taps_fixed_(acc_rows, d_s_bkdNc, pix_bkdN2, h: int, w: int,
+                         shift: int):
+    """`_scatter_taps_` into (b*k*h*w, c) int64 rows: each contribution
+    (weight times gradient, a float32 product) is scaled by 2^shift and
+    rounded to the nearest integer (ties to even) before the sum, so the
+    sums do not depend on the order of the contributions."""
+    c = d_s_bkdNc.shape[-1]
+    scale = 2.0 ** shift
+    for idx, wgt in _taps(pix_bkdN2, h, w):
+        vals = torch.round(d_s_bkdNc * wgt[..., None] * scale).long()
+        acc_rows.index_add_(0, idx.reshape(-1), vals.reshape(-1, c))
+
+
+def _fixed_to_float(acc_rows, max_abs: float, shift: int) -> torch.Tensor:
+    """The float32 values acc * 2^-shift of int64 fixed-point sums; NaN
+    everywhere for a max_abs that is not finite."""
+    if not math.isfinite(max_abs):
+        return torch.full(acc_rows.shape, math.nan, dtype=torch.float32,
+                          device=acc_rows.device)
+    return acc_rows.float() * 2.0 ** -shift
+
+
+def _project(proj_bk44, cur_invK_b44, planes_bdc, h: int, w: int) -> tuple:
+    """The reference pixels' rays at planes (b, dc) projected with
+    proj = K @ src_T_cur (b, k, 4, 4), with `project_points`' eps-safe
+    divide: pixel coords (b, k, dc, N, 2) and the mask z + eps > 0
+    (b, k, dc, N) float32."""
+    P = proj_bk44.float()[:, :, None]                        # (b,k,1,4,4)
+    rays = cv_ops.pixel_rays(cur_invK_b44, h, w)             # (b, N, 3)
+    world = rays[:, None] * planes_bdc[..., None, None]      # (b,dc,N,3)
+    cam = (torch.matmul(world[:, None], P[..., :3, :3].transpose(-1, -2))
+           + P[..., None, :3, 3])
+    z_eps = cam[..., 2:3] + 1e-8
+    scale = torch.where(cam[..., 2:3].abs() > 1e-8, 1.0 / z_eps, 1.0)
+    return cam[..., :2] * scale, (z_eps[..., 0] > 0).float()
+
+
+def sweep_scatter_reference(proj_bk44, cur_invK_b44, depth_planes_bd,
+                            max_abs, h: int, w: int, d_s_bkdNc=None,
+                            g_bdN=None, cur_bNc=None) -> torch.Tensor:
+    """Plain PyTorch version of `sweep_scatter`: the same fixed-point
+    integers, summed with `index_add_` on int64 in chunks of 8 planes.
+    Integer sums do not depend on the order of the contributions, so the
+    chunking, and the order inside `index_add_`, leave the bits as they
+    are. Returns d_src (b, k, h, w, c) float32."""
+    b, d = depth_planes_bd.shape
+    k = proj_bk44.shape[1]
+    n = h * w
+    samples = d_s_bkdNc is not None
+    c = (d_s_bkdNc if samples else cur_bNc).shape[-1]
+    device = depth_planes_bd.device
+    max_abs = float(max_abs)
+    shift = fixed_point_shift(max_abs, 4 * d * n)
+    acc = torch.zeros((b * k * n, c), dtype=torch.int64, device=device)
+    for s in range(0, d, REFERENCE_PLANE_CHUNK):
+        sl = slice(s, s + REFERENCE_PLANE_CHUNK)
+        pix, mask = _project(proj_bk44, cur_invK_b44,
+                             depth_planes_bd[:, sl].float(), h, w)
+        if samples:
+            d_s = d_s_bkdNc[:, :, sl].float()
+        else:
+            m = mask * g_bdN[:, None, sl].float()
+            d_s = m[..., None] * cur_bNc.float()[:, None, None]
+        _scatter_taps_fixed_(acc, d_s, pix, h, w, shift)
+    return _fixed_to_float(acc, max_abs, shift).reshape(b, k, h, w, c)
+
+
+def sweep_scatter(proj_bk44, cur_invK_b44, depth_planes_bd, max_abs,
+                  h: int, w: int, d_s_bkdNc=None, g_bdN=None,
+                  cur_bNc=None) -> torch.Tensor:
+    """The transpose of the sweeps' bilinear warp, summed in an order-free
+    fixed-point form. Returns d_src (b, k, h, w, c) float32.
+
+    Each sample gradient of a (pixel, plane, view), times each of its
+    four tap weights (a float32 product), is scaled by 2^S, rounded to a
+    64-bit integer and added into d_src's element at that tap; the sums
+    are then converted to float32 times 2^-S. S =
+    `fixed_point_shift(max_abs, 4 * d * N)`: max_abs (a float32 tensor
+    of one element, or a float) bounds |d_s|, and no more than 4 * d * N
+    contributions reach one element, so no sum overflows. The gradients
+    are d_s_bkdNc (b, k, d, N, c) (K2's), or d_s = mask * g * cur from
+    g_bdN (b, d, N) float32 and cur_bNc (b, N, c) (the dot model's), with
+    mask = projected z + eps > 0. Geometry: proj = K @ src_T_cur
+    (b, k, 4, 4), the reference inverse intrinsics (b, 4, 4) and the
+    planes (b, d), float32. d_s and cur are float32 or bfloat16, all
+    inputs contiguous on the card.
+
+    CPU tensors go to `sweep_scatter_reference`; CUDA tensors launch the
+    kernel (`csrc/sweep_scatter.cu`), or raise. The bits do not depend on
+    the order of the sums: two calls give the same d_src.
+    """
+    samples = d_s_bkdNc is not None
+    if samples == (g_bdN is not None or cur_bNc is not None):
+        raise ValueError("sweep_scatter takes d_s_bkdNc, or g_bdN and "
+                         "cur_bNc")
+    vals = d_s_bkdNc if samples else cur_bNc
+    device = _build.kernel_device(vals, "sweep_scatter")
+    if device is None:
+        return sweep_scatter_reference(
+            proj_bk44, cur_invK_b44, depth_planes_bd, max_abs, h, w,
+            d_s_bkdNc=d_s_bkdNc, g_bdN=g_bdN, cur_bNc=cur_bNc)
+    cdt = vals.dtype
+    if cdt not in _build.DTYPE_CODES:
+        raise TypeError(f"sweep_scatter takes float32 or bfloat16, not {cdt}")
+    b, d = depth_planes_bd.shape
+    k = proj_bk44.shape[1]
+    n, c = h * w, vals.shape[-1]
+    f32 = torch.float32
+    check = _build.check
+    if samples:
+        check("d_s", d_s_bkdNc, cdt, (b, k, d, n, c), device)
+    else:
+        check("g", g_bdN, f32, (b, d, n), device)
+        check("cur_feats", cur_bNc, cdt, (b, n, c), device)
+    check("proj", proj_bk44, f32, (b, k, 4, 4), device)
+    check("cur_invK", cur_invK_b44, f32, (b, 4, 4), device)
+    check("depth_planes", depth_planes_bd, f32, (b, d), device)
+    check("max_abs", max_abs, f32, (1,), device)
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        acc = torch.zeros((b, k, h, w, c), dtype=torch.int64, device=device)
+        d_src = torch.empty((b, k, h, w, c), dtype=f32, device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        ptrs = [0 if t is None else t.data_ptr() for t in (
+            d_s_bkdNc, g_bdN, cur_bNc, proj_bk44, cur_invK_b44,
+            depth_planes_bd, max_abs, acc, d_src)]
+        rc = lib.sweep_scatter(_build.DTYPE_CODES[cdt], int(not samples),
+                               *ptrs, b, k, h, w, c, d, stream)
+    _build.raise_on_error(lib, "sweep_scatter", rc)
+    sweep_scatter.launches += 1
+    return d_src
+
+
+sweep_scatter.launches = 0
 
 
 def check_dot_args(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44,
@@ -337,9 +503,10 @@ def fused_sweep_bwd(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44,
 
     Returns float32 (d_src, d_cur, d_w0, d_b0, d_w1, d_b1, d_w2, d_b2),
     as `fused_sweep_backward_reference` does. CPU tensors go to that plain
-    version; CUDA tensors launch the kernel, or raise. On the card d_src
-    is summed with float32 atomics, so its last bits vary from run to
-    run; the other gradients are summed in a fixed order.
+    version; CUDA tensors launch the kernel, then `sweep_scatter` on the
+    sample gradients it writes (b, k, d, N, c), or raise. Every gradient
+    is summed in a fixed order or in an order-free form: two calls give
+    the same bits.
     """
     args = (src_feats_bkhwc, cur_bNc, src_extrinsics_bk44, src_Ks_bk44,
             cur_invK_b44, depth_planes_bd, pose_meta_bk3, src_loc_bk3,
@@ -363,7 +530,8 @@ def fused_sweep_bwd(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44,
         fp32 = w0.dtype == torch.float32
         w0t = w0.t().contiguous() if fp32 else None
         w1t = w1.t().contiguous() if fp32 else None
-        d_src = torch.zeros(src_feats_bkhwc.shape, dtype=f32, device=device)
+        d_s = torch.empty((b, k, d, h * w, c), dtype=w0.dtype, device=device)
+        d_s_max = torch.zeros((1,), dtype=torch.int32, device=device)
         d_cur = torch.empty((b, h * w, c), dtype=f32, device=device)
         partials = torch.empty((blocks, n_params), dtype=f32, device=device)
         d_params = torch.empty((n_params,), dtype=f32, device=device)
@@ -371,11 +539,14 @@ def fused_sweep_bwd(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44,
         ptrs = [0 if t is None else t.data_ptr() for t in (
             src_feats_bkhwc, cur_bNc, proj, cur_invK_b44, depth_planes_bd,
             pose_meta_bk3, src_loc_bk3, w0, w0t, b0, w1, w1t, b1, w2, g_bdN,
-            d_src, d_cur, partials, d_params)]
+            d_s, d_s_max, d_cur, partials, d_params)]
         rc = lib.fused_sweep_mlp_bwd(_build.DTYPE_CODES[w0.dtype], *ptrs,
                                      blocks, b, k, h, w, c, d, stream)
     _build.raise_on_error(lib, "fused_sweep_mlp_bwd", rc)
     fused_sweep_bwd.launches += 1
+    # the bits of the largest |d_s| are a non-negative float32's
+    d_src = sweep_scatter(proj, cur_invK_b44, depth_planes_bd,
+                          d_s_max.view(f32), h, w, d_s_bkdNc=d_s)
     sizes = (cin * HIDDEN, HIDDEN * HIDDEN, HIDDEN, HIDDEN, HIDDEN, 1)
     d_w0, d_w1, d_b0, d_b1, d_w2, d_b2 = torch.split(d_params, sizes)
     return (d_src, d_cur, d_w0.reshape(cin, HIDDEN), d_b0,
@@ -454,26 +625,32 @@ def dot_sweep_reference(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44,
 def dot_sweep_backward(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44,
                        src_Ks_bk44, cur_invK_b44, depth_planes_bd,
                        g_bdN) -> tuple:
-    """Backward of the dot-product sweep, in plain PyTorch on any device,
-    given the cotangent g (b, d, N) of its output: with m = mask * g per
-    (view, plane, pixel),
+    """Backward of the dot-product sweep, given the cotangent g (b, d, N)
+    of its output: with m = mask * g per (view, plane, pixel),
         d_cur = sum over views and planes of m * sample,
         d_src = the bilinear transpose of m * cur (a scatter of the taps).
-    Geometry gets none. Recomputes the warp chunk by chunk; returns float32
-    (d_src (b,k,h,w,c), d_cur (b,N,c)).
+    Geometry gets none. Recomputes the warp chunk by chunk for d_cur, in
+    plain PyTorch; returns float32 (d_src (b,k,h,w,c), d_cur (b,N,c)).
 
-    The JAX package has no backward kernel for the dot mode (it trains
-    the dot model through autodiff of its XLA warp), so neither does the
-    port. Its work shows in a profiler as the range "dot_sweep_backward".
+    d_src: on the card one `sweep_scatter` launch over all planes, which
+    forms m * cur itself and sums in an order-free fixed-point form (the
+    same bits on every run); on the CPU `index_add_`, which sums in order
+    there. The JAX package has no backward kernel for the dot mode (it
+    trains the dot model through autodiff of its XLA warp). The work
+    shows in a profiler as the range "dot_sweep_backward".
     """
     b, k, h, w, c = src_feats_bkhwc.shape
     f32 = torch.float32
+    on_card = _build.kernel_device(src_feats_bkhwc,
+                                   "dot_sweep_backward") is not None
     with torch.profiler.record_function("dot_sweep_backward"):
         cur = cur_bNc.float()
         src = src_feats_bkhwc.float()
         g_bdN = g_bdN.to(f32)
-        d_src = torch.zeros((b * k * h * w, c), dtype=f32, device=cur.device)
         d_cur = torch.zeros((b, h * w, c), dtype=f32, device=cur.device)
+        if not on_card:
+            d_src = torch.zeros((b * k * h * w, c), dtype=f32,
+                                device=cur.device)
         for s in range(0, depth_planes_bd.shape[1], REFERENCE_PLANE_CHUNK):
             sl = slice(s, s + REFERENCE_PLANE_CHUNK)
             warp = cv_ops.sweep_warp(src, src_extrinsics_bk44, src_Ks_bk44,
@@ -482,8 +659,18 @@ def dot_sweep_backward(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44,
             m_bkdN = warp.mask_bkdN * g_bdN[:, None, sl]
             d_cur += torch.einsum("bkdn,bkdnc->bnc", m_bkdN,
                                   warp.sampled_bkdNc)
-            _scatter_taps_(d_src, m_bkdN[..., None] * cur[:, None, None],
-                           warp.pix_bkdN2, h, w)
+            if not on_card:
+                _scatter_taps_(d_src, m_bkdN[..., None] * cur[:, None, None],
+                               warp.pix_bkdN2, h, w)
+        if on_card:
+            # m * cur is bounded by max |g| * max |cur|
+            bound = (g_bdN.abs().amax() * cur.abs().amax()).reshape(1)
+            proj = torch.matmul(src_Ks_bk44.float(),
+                                src_extrinsics_bk44.float()).contiguous()
+            return sweep_scatter(proj, cur_invK_b44.float().contiguous(),
+                                 depth_planes_bd.float().contiguous(), bound,
+                                 h, w, g_bdN=g_bdN.contiguous(),
+                                 cur_bNc=cur_bNc.contiguous()), d_cur
     return d_src.reshape(b, k, h, w, c), d_cur
 
 

@@ -11,7 +11,9 @@ and runs the metadata and the MLP in one kernel, from the c-major source
 maps and projection matrices of `warp_inputs`.
 
 Both kernels are in `csrc/early_sweeps.cu` and share K1's metadata rows
-and MLP (`csrc/sweep_common.cuh`). Their plain versions,
+and MLP (`csrc/sweep_common.cuh`): in bf16 K1's tensor-core tile
+(`mma.sync`, `csrc/sweep_mma.cuh`), in float32 K1's CUDA-core MLP. Their
+plain versions,
 `fused_feature_volume_reference` and
 `fused_warp_feature_volume_reference`, keep the JAX kernels' arguments,
 layouts and rounding points:

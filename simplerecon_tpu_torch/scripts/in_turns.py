@@ -10,11 +10,16 @@ Each TREE is the root of a checkout; each runs in its own process (its
 own `simplerecon_tpu_torch`, its own kernel build), in the order given.
 `--phases` names `chip_smoke.py` functions that take the device, such as
 phase_kernel, phase_backward and phase_early_kernels (default: those
-three); the phases print their own lines. The phase "sweep_times" is this
-script's: K1 and K2 in bf16 at the hero sweep shape for each batch size
-of `--batches` (default 1,8,16), median CUDA-event ms of 10 calls after
-3 warm-up calls. Every line a tree prints is prefixed with its name.
-Needs a CUDA card.
+three); the phases print their own lines. Two phases are this script's,
+for each batch size of `--batches` (default 1,8,16) at the hero sweep
+shape, in bf16: "sweep_times" times K1 and K2, and in a tree that has it
+the scatter of K2's d_src alone, in both its modes, on seeded gradients;
+"early_times" times K5 (one chunk of planes) and K4. Both give the
+median CUDA-event ms of 10 calls after 3 warm-up calls, and a digest of
+each output (its bytes' SHA-256), so that two trees' outputs can be
+compared bit for bit; "early_times" also digests the float32 K1, K5 and
+K4 at b=1. Every line a tree prints is prefixed with
+its name. Needs a CUDA card.
 """
 
 import argparse
@@ -23,10 +28,18 @@ import subprocess
 import sys
 
 TREE_CODE = r"""
-import statistics, sys, torch
+import hashlib, statistics, sys, torch
 import chip_smoke
-from simplerecon_tpu_torch.ops import cuda_cv
-from simplerecon_tpu_torch.testing import sweep_case, sweep_cotangent
+from simplerecon_tpu_torch.ops import cuda_cv, early_sweeps
+from simplerecon_tpu_torch.testing import (stack_case, sweep_case,
+                                           sweep_cotangent, warp_case)
+try:
+    from simplerecon_tpu_torch.testing import scatter_case
+except ImportError:  # a tree from before the scatter
+    pass
+
+def digest(t):
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
 
 def sweep_times(device, batches):
     for b in batches:
@@ -36,18 +49,58 @@ def sweep_times(device, batches):
         g = sweep_cotangent(b, shape[-1], shape[2] * shape[3], device,
                             seed=2)
         with torch.no_grad():
+            out = digest(cuda_cv.fused_sweep(*args))
             k1 = chip_smoke.cuda_ms(lambda: cuda_cv.fused_sweep(*args), 10)
         k2 = chip_smoke.cuda_ms(lambda: cuda_cv.fused_sweep_bwd(*args, g), 10)
-        print(f"[sweep_times] bf16 {shape}: K1 {k1:.3f} ms, K2 {k2:.3f} ms",
-              flush=True)
+        print(f"[sweep_times] bf16 {shape}: K1 {k1:.3f} ms, K2 {k2:.3f} ms; "
+              f"K1 output {out}", flush=True)
+        if not hasattr(cuda_cv, "sweep_scatter"):
+            continue
+        del args
+        for dot in (False, True):
+            sargs, grads = scatter_case(*shape, dtype=torch.bfloat16,
+                                        device=device, seed=1, dot=dot)
+            out = digest(cuda_cv.sweep_scatter(*sargs, **grads))
+            ms = chip_smoke.cuda_ms(
+                lambda: cuda_cv.sweep_scatter(*sargs, **grads), 10)
+            mode = " (dot)" if dot else ""
+            print(f"[sweep_times] bf16 {shape}: scatter{mode} {ms:.3f} ms; "
+                  f"output {out}", flush=True)
+            del sargs, grads
+
+EARLY = {"K5": (stack_case, early_sweeps.fused_feature_volume),
+         "K4": (warp_case, early_sweeps.fused_warp_feature_volume)}
+
+def early_times(device, batches):
+    k, h, w, c, d = chip_smoke.HERO_SWEEP
+    for b in batches:
+        for name, (make_case, fn) in EARLY.items():
+            planes = (early_sweeps.stack_plane_chunk(b, k, h * w, c, d)
+                      if name == "K5" else d)
+            shape = (b, k, h, w, c, planes)
+            args = make_case(*shape, dtype=torch.bfloat16, device=device,
+                             seed=1)
+            with torch.no_grad():
+                out = digest(fn(*args))
+                ms = chip_smoke.cuda_ms(lambda: fn(*args), 10)
+            print(f"[early_times] {name} bf16 {shape}: {ms:.3f} ms; output "
+                  f"{out}", flush=True)
+            del args
+    shape = (1,) + chip_smoke.HERO_SWEEP
+    for name, make_case, fn in (("K1", sweep_case, cuda_cv.fused_sweep),
+                                ("K5",) + EARLY["K5"], ("K4",) + EARLY["K4"]):
+        args = make_case(*shape, dtype=torch.float32, device=device, seed=1)
+        with torch.no_grad():
+            print(f"[early_times] {name} float32 {shape}: output "
+                  f"{digest(fn(*args))}", flush=True)
 
 device = torch.device("cuda", 0)
 chip_smoke.phase_card()
 chip_smoke.phase_build()
 batches = [int(x) for x in sys.argv[2].split(",")]
 for name in sys.argv[1].split(","):
-    if name == "sweep_times":
-        sweep_times(device, batches)
+    if name in ("sweep_times", "early_times"):
+        globals()[name](device, batches)
     else:
         getattr(chip_smoke, name)(device)
 """

@@ -177,6 +177,28 @@ def sweep_cotangent(b: int, d: int, n: int, device, seed: int = 0
     return torch.from_numpy(g).to(device)
 
 
+def scatter_case(b: int, k: int, h: int, w: int, c: int, d: int,
+                 dtype: torch.dtype, device, seed: int = 0,
+                 dot: bool = False) -> tuple:
+    """`sweep_scatter`'s arguments at a sweep shape: (proj, invK, planes,
+    max_abs, h, w) and its gradients as keywords, either seeded sample
+    gradients d_s (b, k, d, N, c) in `dtype`, or (dot) a cotangent g
+    (b, d, N) and the reference features cur (b, N, c) in `dtype`;
+    max_abs bounds |d_s| (for the dot model, max |g| * max |cur|)."""
+    _, cur, extr, Ks, invK, planes = dot_case(b, k, h, w, c, d, dtype,
+                                              device, seed)
+    proj = torch.matmul(Ks, extr).contiguous()
+    if dot:
+        g = sweep_cotangent(b, d, h * w, device, seed=seed + 1)
+        bound = (g.abs().amax() * cur.float().abs().amax()).reshape(1)
+        return (proj, invK, planes, bound, h, w), dict(g_bdN=g, cur_bNc=cur)
+    d_s = np.random.RandomState(seed + 1).randn(b, k, d, h * w, c)
+    d_s = torch.from_numpy(d_s.astype(np.float32)).to(device=device,
+                                                      dtype=dtype)
+    bound = d_s.float().abs().amax().reshape(1)
+    return (proj, invK, planes, bound, h, w), dict(d_s_bkdNc=d_s)
+
+
 SWEEP_GRAD_NAMES = ("d_src", "d_cur", "d_w0", "d_b0", "d_w1", "d_b1",
                     "d_w2", "d_b2")
 

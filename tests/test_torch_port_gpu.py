@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: the fused sweep (K1 forward, K2 backward), the dot-product sweep
-(K1-dot), the stem pool (K3 forward and backward) and the hero model's
-inference-only sweeps (K5 over a warped stack, K4 the full-width fused
-warp). Marked `gpu`;
+card: the fused sweep (K1 forward, K2 backward), the order-free scatter
+of the sweeps' gradient, the dot-product sweep (K1-dot), the stem pool
+(K3 forward and backward) and the hero model's inference-only sweeps (K5
+over a warped stack, K4 the full-width fused warp). Marked `gpu`;
 skipped where there is no CUDA device. Run on the H100 with
 `python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py`.
 
@@ -14,7 +14,8 @@ the MLP input.
 
 K2 tolerances, per gradient. float32 against the float32 plain
 backward: at the small odd shape max |kernel - plain| <= 1e-4 max |plain|
-(the same sums in another order; d_src with atomics in no fixed order).
+(the same sums in another order; d_src in fixed point, the plain
+version's in float32).
 At the hero shape (100 M (pixel, plane, hidden unit) pre-activations) a
 last-bit difference in a 202-term pre-activation sum flips the leaky
 ReLU's slope between 1 and 0.01 for some of them, and each flip moves
@@ -35,7 +36,17 @@ and c = 4 (scalar taps and atomics), K1 is held as above and K2 to
 backward (the same rounding points; a float32 sum in another order flips
 a few bf16 roundings, which the gradients' cancelling sums amplify), and
 to the 0.1 above against the float32 one. K2's d_cur and weight and
-bias gradients are summed in a fixed order: two calls give the same bits.
+bias gradients are summed in a fixed order and d_src in fixed point: two
+calls give the same bits, d_src included.
+
+The scatter (`sweep_scatter`, K2's d_src and the dot backward's): max
+|kernel - plain| <= 1e-4 * max(1, max |plain|) against
+`sweep_scatter_reference`, which sums the same 64-bit integers: they
+differ only where the projection's float32 sums, in another order, move
+a tap weight by an ulp of the pixel coordinate. Two calls give the same
+bits. The dot model's backward on the card (its d_src from the scatter,
+its d_cur from plain float32 products) gives the same bits from two
+calls.
 
 K1-dot: max |kernel - plain| <= 1e-4 * max(1, max |plain|) in float32
 and in bf16. Neither version rounds inside: both sample bf16 maps in
@@ -62,8 +73,9 @@ import torch
 from simplerecon_tpu_torch.ops import cuda_cv, early_sweeps, pool
 from simplerecon_tpu_torch.testing import (dot_case, pool_case,
                                            pool_cotangent, relative_errors,
-                                           stack_case, sweep_case,
-                                           sweep_cotangent, warp_case)
+                                           scatter_case, stack_case,
+                                           sweep_case, sweep_cotangent,
+                                           warp_case)
 
 pytestmark = pytest.mark.gpu
 
@@ -72,6 +84,7 @@ BWD_MAX_TOL = 1e-4                          # float32, odd shape
 BWD_L2_TOL = {torch.float32: 1e-2, torch.bfloat16: 0.1}
 BWD_SAME_ROUNDING_TOL = 2e-2                # bf16 against the bf16 plain
 DOT_TOL = 1e-4
+SCATTER_TOL = 1e-4
 POOL_TOL = 1e-5                             # float32
 POOL_BF16_REL = 2.0 ** -8
 
@@ -194,8 +207,8 @@ def test_backward_kernel_sums_weights_in_a_fixed_order(cuda, dtype):
     first = cuda_cv.fused_sweep_bwd(*args, g)
     second = cuda_cv.fused_sweep_bwd(*args, g)
     torch.cuda.synchronize()
-    for name, x, y in zip(("d_cur", "d_w0", "d_b0", "d_w1", "d_b1", "d_w2",
-                           "d_b2"), first[1:], second[1:]):
+    for name, x, y in zip(("d_src", "d_cur", "d_w0", "d_b0", "d_w1", "d_b1",
+                           "d_w2", "d_b2"), first, second):
         assert torch.equal(x, y), name
 
 
@@ -222,17 +235,40 @@ def test_dot_sweep_function_launches_the_kernel_once(cuda):
     args = dot_case(1, 2, 8, 8, 16, 3, dtype=torch.float32, device=cuda)
     args[0].requires_grad_()
     args[1].requires_grad_()
-    before = cuda_cv.dot_sweep.launches
+    before = (cuda_cv.dot_sweep.launches, cuda_cv.sweep_scatter.launches)
     out = cuda_cv.DotSweep.apply(*args)
     g = torch.randn_like(out)
     out.backward(g)
-    assert cuda_cv.dot_sweep.launches == before + 1
     d_src, d_cur = cuda_cv.dot_sweep_backward(*[a.detach() for a in args],
                                               g)
-    # the plain backward's scatter (index_add_) sums with atomics on the
-    # card, in no fixed order: last bits differ between two calls
-    torch.testing.assert_close(args[0].grad, d_src, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(args[1].grad, d_cur, rtol=1e-5, atol=1e-5)
+    assert (cuda_cv.dot_sweep.launches,
+            cuda_cv.sweep_scatter.launches) == (before[0] + 1, before[1] + 2)
+    # d_src is summed in fixed point by the scatter kernel, d_cur by plain
+    # products in a fixed order: two calls give the same bits
+    assert torch.equal(args[0].grad, d_src)
+    assert torch.equal(args[1].grad, d_cur)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 3, 13, 21, 16, 5),
+                                   (1, 7, 96, 128, 16, 64)],
+                         ids=["odd", "hero"])
+@pytest.mark.parametrize("mode", ["samples", "dot"])
+def test_scatter_kernel_matches_plain_version(cuda, mode, dtype, shape):
+    b, k, h, w, c, d = shape
+    args, grads = scatter_case(*shape, dtype=dtype, device=cuda, seed=1,
+                               dot=mode == "dot")
+    before = cuda_cv.sweep_scatter.launches
+    got = cuda_cv.sweep_scatter(*args, **grads)
+    again = cuda_cv.sweep_scatter(*args, **grads)
+    torch.cuda.synchronize()
+    assert cuda_cv.sweep_scatter.launches == before + 2
+    assert got.shape == (b, k, h, w, c) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    want = cuda_cv.sweep_scatter_reference(*args, **grads)
+    err = (got - want).abs().max().item()
+    assert err <= SCATTER_TOL * max(1.0, want.abs().max().item()), err
 
 
 def _pool_errors(x, positive_g):
