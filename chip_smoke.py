@@ -50,10 +50,13 @@ non-zero, and only a run that passes them all prints the last line:
    bit-identical over two calls, the scatter in its dot mode against its
    plain version, and at b=16 the dot backward's time and the scatter's;
 10. the stem pool kernels (K3-fwd, K3-bwd) against the plain chain and
-   its autograd at an odd shape and the encoder's shapes at b=1 and b=16,
-   in float32 and in the dtype the bf16 encoder hands the pool, on
-   ReLU'd inputs with ties: values, identical gradient routing, times and
-   bounds;
+   its autograd at `testing.POOL_CASES` (an odd shape, an odd H with
+   16-byte rows, a width no column tile divides, a map off a 16-byte
+   boundary, the encoder's b=1 shape) and the encoder's b=16 shape, in
+   float32 and in the dtype the bf16 encoder hands the pool, on ReLU'd
+   inputs with ties: values, identical gradient routing, times and
+   bounds, and which staging path (16-byte or element-wise) each case
+   took: both must run;
 11. the dot-product model (bf16, `matching_pool_impl="pallas"`,
    `fast_cost_volume=True`) through `OnlineSession` over the 12-frame
    stream: outputs finite and of the right shapes, K1-dot and K3-fwd
@@ -121,10 +124,10 @@ from simplerecon_tpu_torch.ops import (  # noqa: E402
     _build, cuda_cv, early_sweeps, pool)
 from simplerecon_tpu_torch.parallel import train  # noqa: E402
 from simplerecon_tpu_torch.testing import (  # noqa: E402
-    SWEEP_GRAD_NAMES, dot_case, dot_options, hero_options, pool_case,
-    pool_cotangent, posed_stream, relative_errors, scatter_case,
-    spread_outputs_, stack_case, sweep_case, sweep_cotangent, train_batch,
-    warp_case)
+    POOL_CASES, SWEEP_GRAD_NAMES, dot_case, dot_options, hero_options,
+    pool_case, pool_cotangent, posed_stream, relative_errors, scatter_case,
+    shifted, spread_outputs_, stack_case, sweep_case, sweep_cotangent,
+    train_batch, warp_case)
 
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # K1 in bf16 against the float32 plain version, relative L2: bf16 rounds
@@ -1006,21 +1009,25 @@ def phase_pool_kernels(device) -> tuple:
     cdt = encoder_pool_dtype(device)
     dtypes = (torch.float32,) if cdt == torch.float32 else (torch.float32,
                                                             cdt)
-    report = {}
-    for name, shape in (("odd", (2, 3, 13, 22)),
-                        ("encoder_b1", (8,) + STEM),
-                        (f"encoder_b{TRAIN_BATCH}",
-                         (8 * TRAIN_BATCH,) + STEM)):
+    report, staged = {}, set()
+    cases = dict(POOL_CASES)
+    cases[f"encoder_b{TRAIN_BATCH}"] = ((8 * TRAIN_BATCH,) + STEM, 0)
+    for name, (shape, offset) in cases.items():
         b, c, h, w = shape
         for dtype in dtypes:
-            x = pool_case(shape, dtype, device, seed=3)
-            g = pool_cotangent((b, c) + pool.output_size(h, w), dtype, device,
-                               seed=4, positive=True)
+            x = shifted(pool_case(shape, dtype, device, seed=3), offset)
+            g = shifted(pool_cotangent((b, c) + pool.output_size(h, w),
+                                       dtype, device, seed=4, positive=True),
+                        offset)
             before = (pool.max_blur_pool.launches,
                       pool.max_blur_pool_bwd.launches)
             out = pool.max_blur_pool(x)
             dx = pool.max_blur_pool_bwd(x, g)
             torch.cuda.synchronize()
+            by16 = (pool.rows_by_16_bytes(x, w),
+                    pool.rows_by_16_bytes(out, out.shape[-1]),
+                    pool.rows_by_16_bytes(g, g.shape[-1]))
+            staged.update(by16)
             assert (pool.max_blur_pool.launches,
                     pool.max_blur_pool_bwd.launches) == (before[0] + 1,
                                                          before[1] + 1)
@@ -1076,9 +1083,11 @@ def phase_pool_kernels(device) -> tuple:
                       f"max |diff| fwd {fwd_same:.3e} bwd {same:.3e}")
             print(f"[pool_kernel] {tag}: dx routed to the same "
                   f"{routed.float().mean().item():.4f} of the elements as "
-                  "the plain autograd")
+                  "the plain autograd; rows by 16 bytes (else element by "
+                  f"element): x {by16[0]}, out {by16[1]}, g {by16[2]}")
             report[tag] = entry
             del x, g, out, dx, want, want_dx, xr, graph
+    assert staged == {True, False}, "both staging paths must run"
     return report, cdt
 
 

@@ -116,9 +116,10 @@ def load_library() -> ctypes.CDLL:
                                               + [vp])
     lib.fused_warp_feature_volume.restype = ci
     ll = ctypes.c_longlong
-    lib.max_blur_pool_fwd.argtypes = [ci, vp, vp, ll, ci, ci, vp]
+    lib.max_blur_pool_fwd.argtypes = [ci, vp, vp, ll, ci, ci, ci, ci, vp]
     lib.max_blur_pool_fwd.restype = ci
-    lib.max_blur_pool_bwd.argtypes = [ci, vp, vp, vp, ll, ci, ci, vp]
+    lib.max_blur_pool_bwd.argtypes = [ci, vp, vp, vp, ll, ci, ci, ci, ci,
+                                      vp]
     lib.max_blur_pool_bwd.restype = ci
     lib.fused_sweep_error_string.argtypes = [ci]
     lib.fused_sweep_error_string.restype = ctypes.c_char_p

@@ -9,9 +9,11 @@ body `_fwd_kernel`) and `max_blur_pool_bwd` its hand-written backward
 `_bwd_pallas` (K3-bwd, body `_bwd_kernel`), which sends the
 blur-transposed gradient to the first maximum of each 2x2 window in
 row-major order. Both CUDA kernels are in `csrc/max_blur_pool.cu`; see
-the note there for what bounds them on an H100. For CPU tensors the
-wrappers run the plain chain (`max_blur_pool_reference`) and its
-autograd (`max_blur_pool_backward_reference`); for CUDA tensors they
+the note there for what bounds them on an H100. They stage rows with
+16-byte copies and write with 16-byte stores where the rows allow it
+(`rows_by_16_bytes`), element by element where they do not. For CPU
+tensors the wrappers run the plain chain (`max_blur_pool_reference`) and
+its autograd (`max_blur_pool_backward_reference`); for CUDA tensors they
 launch the kernels, or raise. The kernels take every shape the plain
 chain takes (H, W >= 4, odd ones included), where the JAX kernel falls
 back to XLA on shapes it does not tile. `MaxBlurPool` joins the two as
@@ -83,6 +85,13 @@ def check_args(x_bchw: torch.Tensor) -> tuple:
     return b, c, h, w
 
 
+def rows_by_16_bytes(t: torch.Tensor, width: int) -> bool:
+    """Whether the rows of `t`, a contiguous map `width` elements wide,
+    all start on a 16-byte boundary: the kernels then copy and store
+    them 16 bytes at a time, else one element at a time."""
+    return t.data_ptr() % 16 == 0 and width * t.element_size() % 16 == 0
+
+
 def max_blur_pool(x_bchw: torch.Tensor) -> torch.Tensor:
     """Max-pool 2x2/1 then BlurPool(4)/2 (K3-fwd). (b, c, h, w) ->
     (b, c, Ho, Wo) in x's dtype, summed in float32 and rounded once. No
@@ -98,7 +107,9 @@ def max_blur_pool(x_bchw: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.max_blur_pool_fwd(_build.DTYPE_CODES[x_bchw.dtype],
                                    x_bchw.data_ptr(), out.data_ptr(),
-                                   b * c, h, w, stream)
+                                   b * c, h, w, rows_by_16_bytes(x_bchw, w),
+                                   rows_by_16_bytes(out, out.shape[-1]),
+                                   stream)
     _build.raise_on_error(lib, "max_blur_pool_fwd", rc)
     max_blur_pool.launches += 1
     return out
@@ -124,9 +135,11 @@ def max_blur_pool_bwd(x_bchw: torch.Tensor, g_bchw: torch.Tensor
     with torch.cuda.device(device):
         dx = torch.empty_like(x_bchw)
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.max_blur_pool_bwd(_build.DTYPE_CODES[x_bchw.dtype],
-                                   x_bchw.data_ptr(), g_bchw.data_ptr(),
-                                   dx.data_ptr(), b * c, h, w, stream)
+        rc = lib.max_blur_pool_bwd(
+            _build.DTYPE_CODES[x_bchw.dtype], x_bchw.data_ptr(),
+            g_bchw.data_ptr(), dx.data_ptr(), b * c, h, w,
+            rows_by_16_bytes(x_bchw, w) and rows_by_16_bytes(dx, w),
+            rows_by_16_bytes(g_bchw, g_bchw.shape[-1]), stream)
     _build.raise_on_error(lib, "max_blur_pool_bwd", rc)
     max_blur_pool_bwd.launches += 1
     return dx

@@ -14,12 +14,15 @@ three); the phases print their own lines. Two phases are this script's,
 for each batch size of `--batches` (default 1,8,16) at the hero sweep
 shape, in bf16: "sweep_times" times K1 and K2, and in a tree that has it
 the scatter of K2's d_src alone, in both its modes, on seeded gradients;
-"early_times" times K5 (one chunk of planes) and K4. Both give the
-median CUDA-event ms of 10 calls after 3 warm-up calls, and a digest of
-each output (its bytes' SHA-256), so that two trees' outputs can be
-compared bit for bit; "early_times" also digests the float32 K1, K5 and
-K4 at b=1. Every line a tree prints is prefixed with
-its name. Needs a CUDA card.
+"early_times" times K5 (one chunk of planes) and K4; "pool_times" times
+K3-fwd and K3-bwd at the stem pool's shape for each batch size (8
+views a sample) and at a small odd shape, in float32 and bf16, through
+`ops/pool.py`'s public wrappers only, so a tree from before the phase
+runs it too. All three give the median CUDA-event ms of 10 calls after
+3 warm-up calls, and a digest of each output (its bytes' SHA-256), so
+that two trees' outputs can be compared bit for bit; "early_times" also
+digests the float32 K1, K5 and K4 at b=1. Every line a tree prints is
+prefixed with its name. Needs a CUDA card.
 """
 
 import argparse
@@ -30,8 +33,9 @@ import sys
 TREE_CODE = r"""
 import hashlib, statistics, sys, torch
 import chip_smoke
-from simplerecon_tpu_torch.ops import cuda_cv, early_sweeps
-from simplerecon_tpu_torch.testing import (stack_case, sweep_case,
+from simplerecon_tpu_torch.ops import cuda_cv, early_sweeps, pool
+from simplerecon_tpu_torch.testing import (pool_case, pool_cotangent,
+                                           stack_case, sweep_case,
                                            sweep_cotangent, warp_case)
 try:
     from simplerecon_tpu_torch.testing import scatter_case
@@ -39,7 +43,8 @@ except ImportError:  # a tree from before the scatter
     pass
 
 def digest(t):
-    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+    data = t.detach().cpu().contiguous().flatten().view(torch.uint8)
+    return hashlib.sha256(data.numpy().tobytes()).hexdigest()[:16]
 
 def sweep_times(device, batches):
     for b in batches:
@@ -94,12 +99,29 @@ def early_times(device, batches):
             print(f"[early_times] {name} float32 {shape}: output "
                   f"{digest(fn(*args))}", flush=True)
 
+def pool_times(device, batches):
+    shapes = [(2, 3, 13, 22)] + [(8 * b,) + chip_smoke.STEM for b in batches]
+    for shape in shapes:
+        b, c, h, w = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            x = pool_case(shape, dtype, device, seed=3)
+            g = pool_cotangent((b, c) + pool.output_size(h, w), dtype,
+                               device, seed=4, positive=True)
+            out = digest(pool.max_blur_pool(x))
+            dx = digest(pool.max_blur_pool_bwd(x, g))
+            fwd = chip_smoke.cuda_ms(lambda: pool.max_blur_pool(x), 10)
+            bwd = chip_smoke.cuda_ms(lambda: pool.max_blur_pool_bwd(x, g), 10)
+            name = str(dtype).split(".")[-1]
+            print(f"[pool_times] {name} {shape}: K3-fwd {fwd:.4f} ms, "
+                  f"K3-bwd {bwd:.4f} ms; output {out}, dx {dx}", flush=True)
+            del x, g
+
 device = torch.device("cuda", 0)
 chip_smoke.phase_card()
 chip_smoke.phase_build()
 batches = [int(x) for x in sys.argv[2].split(",")]
 for name in sys.argv[1].split(","):
-    if name in ("sweep_times", "early_times"):
+    if name in ("sweep_times", "early_times", "pool_times"):
         globals()[name](device, batches)
     else:
         getattr(chip_smoke, name)(device)

@@ -148,6 +148,29 @@ def warp_case(b: int, k: int, h: int, w: int, c: int, d: int,
     return [img, cur, rays, planes, proj, *rest]
 
 
+# the stem pool's test shapes, (b, c, h, w), and how many elements each
+# map is shifted from a 16-byte boundary: an odd shape (bf16 rows of 44
+# bytes), an odd H with 16-byte rows, a width that no column tile of the
+# kernels divides, a misaligned map (staged element by element) and the
+# matching encoder's stem at b=1 (8 views of 64 x 192 x 256)
+POOL_CASES = {
+    "odd": ((2, 3, 13, 22), 0),
+    "odd_h": ((3, 5, 37, 72), 0),
+    "column_tiles": ((2, 4, 41, 336), 0),
+    "unaligned_base": ((2, 8, 64, 256), 1),
+    "encoder_b1": ((8, 64, 192, 256), 0),
+}
+
+
+def shifted(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """t's values in a contiguous tensor whose data starts `offset`
+    elements into a buffer (off a 16-byte boundary for offset 1)."""
+    if offset == 0:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    return buf[offset:].view(t.shape).copy_(t)
+
+
 def pool_case(shape, dtype: torch.dtype, device, seed: int = 0
               ) -> torch.Tensor:
     """A ReLU'd NCHW input of the stem pool, on quarter steps, so exact

@@ -57,23 +57,26 @@ K5 and K4: as K1 (the same MLP, summed in another order, behind inputs
 rounded at the same points), 1e-4 in float32 and 1e-2 in bf16, times
 max(1, max |plain|).
 
-K3, float32: max |kernel - plain| <= 1e-5 * max(1, max |plain|) for the
-output and for dx (the same sums of at most 36 positive-weight terms in
-another order). bf16: the kernel sums in float32 and rounds once, so
-against the plain chain in float32 on the same bf16-valued input every
-element is within 2^-8 of the reference's magnitude (one rounding,
-2^-9, with room for the sum order). dx must be nonzero at exactly the
-elements where the plain autograd's is, for a positive cotangent (the
-first maximum of each 2x2 window, ties included).
+K3, at an odd shape, an odd H with 16-byte rows, a width that no column
+tile divides, a map that starts off a 16-byte boundary (staged element
+by element) and the encoder's b1 shape; float32: max |kernel - plain|
+<= 1e-5 * max(1, max |plain|) for the output and for dx (the same sums
+of at most 36 positive-weight terms in another order). bf16: the kernel
+sums in float32 and rounds once, so against the plain chain in float32
+on the same bf16-valued input every element is within 2^-8 of the
+reference's magnitude (one rounding, 2^-9, with room for the sum
+order). dx must be nonzero at exactly the elements where the plain
+autograd's is, for a positive cotangent (the first maximum of each 2x2
+window, ties included). Two calls give the same bits.
 """
 
 import pytest
 import torch
 
 from simplerecon_tpu_torch.ops import cuda_cv, early_sweeps, pool
-from simplerecon_tpu_torch.testing import (dot_case, pool_case,
+from simplerecon_tpu_torch.testing import (POOL_CASES, dot_case, pool_case,
                                            pool_cotangent, relative_errors,
-                                           scatter_case, stack_case,
+                                           scatter_case, shifted, stack_case,
                                            sweep_case, sweep_cotangent,
                                            warp_case)
 
@@ -284,13 +287,17 @@ def _pool_errors(x, positive_g):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("shape", [(2, 3, 13, 22), (8, 64, 192, 256)],
-                         ids=["odd", "encoder_b1"])
-def test_pool_kernels_match_plain_versions(cuda, dtype, shape):
-    x = pool_case(shape, dtype, cuda, seed=3)
+@pytest.mark.parametrize("case", list(POOL_CASES), ids=list(POOL_CASES))
+def test_pool_kernels_match_plain_versions(cuda, dtype, case):
+    shape, offset = POOL_CASES[case]
+    x = shifted(pool_case(shape, dtype, cuda, seed=3), offset)
     b, c, h, w = shape
-    g = pool_cotangent((b, c) + pool.output_size(h, w), dtype, cuda, seed=4,
-                       positive=True)
+    g = shifted(pool_cotangent((b, c) + pool.output_size(h, w), dtype, cuda,
+                                seed=4, positive=True), offset)
+    if offset:
+        assert not pool.rows_by_16_bytes(x, w)   # element-wise staging
+    if case == "encoder_b1":
+        assert pool.rows_by_16_bytes(x, w)       # 16-byte staging
     before = (pool.max_blur_pool.launches, pool.max_blur_pool_bwd.launches)
     pairs = _pool_errors(x, g)
     assert (pool.max_blur_pool.launches,
@@ -306,6 +313,18 @@ def test_pool_kernels_match_plain_versions(cuda, dtype, shape):
             assert (diff <= POOL_BF16_REL * want.abs() + 1e-6).all(), diff
     got_dx, want_dx = pairs[1]
     assert torch.equal(got_dx != 0, want_dx != 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_pool_kernels_give_the_same_bits_twice(cuda, dtype):
+    shape = POOL_CASES["encoder_b1"][0]
+    x = pool_case(shape, dtype, cuda, seed=6)
+    b, c, h, w = shape
+    g = pool_cotangent((b, c) + pool.output_size(h, w), dtype, cuda, seed=7)
+    assert torch.equal(pool.max_blur_pool(x), pool.max_blur_pool(x))
+    assert torch.equal(pool.max_blur_pool_bwd(x, g),
+                       pool.max_blur_pool_bwd(x, g))
 
 
 def test_max_blur_pool_function_launches_each_kernel_once(cuda):
