@@ -26,8 +26,12 @@ non-zero, and only a run that passes them all prints the last line:
    backward; CUDA-event times of both, the kernel's TFLOP/s and share of
    its bound; all eight gradients, d_src included, bit-identical over two
    calls; the scatter alone against its plain version on seeded sample
-   gradients of the same shape, bit-identical over two calls, its time
-   and bound, and at b=16 one `index_add_` call on the same taps;
+   gradients of the same shape, with the cameras of both
+   `testing.GEOMETRIES` (far apart, and as in training), bit-identical
+   over two calls, the SHA-256 digest of d_src, how many (block, plane)
+   pairs summed in a block's shared-memory window and how many went
+   straight to device memory, its time and bound, and at b=16 one
+   `index_add_` call on the same taps;
 7. hero training on the card: 384x512, 8 views, 64 planes, bf16, batch
    16, one fixed seeded batch; 3 warm-up and 5 timed steps through
    `parallel/train.py::train_step`: losses and gradient norms finite,
@@ -46,9 +50,12 @@ non-zero, and only a run that passes them all prints the last line:
    small odd shape and hero b=1 in float32 (TF32 off) and bf16, and at
    hero b=8 and b=16 in bf16, bf16 also against the plain version on the
    unrounded float32 features; CUDA-event times of both and the bound;
-   the dot backward (d_cur in plain PyTorch, d_src by the scatter)
-   bit-identical over two calls, the scatter in its dot mode against its
-   plain version, and at b=16 the dot backward's time and the scatter's;
+   K1-dot's d_cur mode against its plain version, bit-identical over two
+   calls, its time and bound; the dot backward (d_cur by that mode, d_src
+   by the scatter) bit-identical over two calls, the scatter in its dot
+   mode against its plain version in both geometries (digests and paths
+   as in phase 6), and at b=16 the dot backward's time and the
+   scatter's; over phases 6 and 9 both of the scatter's paths must run;
 10. the stem pool kernels (K3-fwd, K3-bwd) against the plain chain and
    its autograd at `testing.POOL_CASES` (an odd shape, an odd H with
    16-byte rows, a width no column tile divides, a map off a 16-byte
@@ -66,10 +73,10 @@ non-zero, and only a run that passes them all prints the last line:
    per request);
 12. dot-product training, b16 bf16, one fixed batch, 3 warm-up and 5
    timed steps: finite losses and gradient norms, every parameter
-   changed, K1-dot, K3-fwd, K3-bwd and the scatter once a step, K1 and
-   K2 never;
-   median step time, peak memory and a profiler split of device time
-   that names the dot backward's share;
+   changed, K1-dot, its d_cur mode, K3-fwd, K3-bwd and the scatter once a
+   step, K1 and K2 never, and no plain warp (`sweep_warp`) inside the dot
+   backward; median step time, peak memory and a profiler split of
+   device time that names the dot backward's share;
 13. the card against the CPU in float32 at 192x256 (dot widths): the
    forward as in phase 5, and the first training step's loss, gradient
    norm and gradients of the first matching conv and a decoder head as
@@ -93,13 +100,16 @@ non-zero, and only a run that passes them all prints the last line:
    "pallas_v1" and "pallas_full".
 
 The line before the last is the kernel report as JSON (the seven
-kernels that replace the TPU kernels, and the scatter that sums K2's
-d_src; K1, K2, the scatter, K1-dot and K3 at the shapes their training
+kernels that replace the TPU kernels, the scatter that sums K2's d_src
+and K1-dot's d_cur mode; K1, K2, the scatter (K2's mode, the training
+geometry), K1-dot, its d_cur mode and K3 at the shapes their training
 path gives them, K4 and K5 at hero b=8 inference); the last line is
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
 
+import contextlib
 import copy
+import hashlib
 import json
 import re
 import statistics
@@ -122,9 +132,11 @@ from simplerecon_tpu_torch.online import \
     OnlineSession, make_batch  # noqa: E402
 from simplerecon_tpu_torch.ops import (  # noqa: E402
     _build, cuda_cv, early_sweeps, pool)
+from simplerecon_tpu_torch.ops import cost_volume as cv_ops  # noqa: E402
 from simplerecon_tpu_torch.parallel import train  # noqa: E402
 from simplerecon_tpu_torch.testing import (  # noqa: E402
-    POOL_CASES, SWEEP_GRAD_NAMES, dot_case, dot_options, hero_options,
+    GEOMETRIES, POOL_CASES, SWEEP_GRAD_NAMES, dot_case, dot_options,
+    hero_options,
     pool_case, pool_cotangent, posed_stream, relative_errors, scatter_case,
     shifted, spread_outputs_, stack_case, sweep_case, sweep_cotangent,
     train_batch, warp_case)
@@ -178,6 +190,11 @@ DOT_BF16_L2_TOL = 2e-2
 # order (tests/test_torch_port_gpu.py): max |diff| <= SCATTER_TOL *
 # max(1, max |plain|)
 SCATTER_TOL = 1e-4
+# K1-dot's d_cur mode against its plain version: the same float32
+# products of the same bf16 or float32 features, summed in another order
+# over taps whose coordinates round differently (tests/
+# test_torch_port_gpu.py): max |diff| <= DCUR_TOL * max(1, max |plain|)
+DCUR_TOL = 1e-4
 # K3 (tests/test_torch_port_gpu.py gives the reasons): float32 max
 # |kernel - plain| <= POOL_TOL * max(1, max |plain|); bf16 elementwise
 # within POOL_BF16_REL of the float32 chain on the same values
@@ -200,7 +217,9 @@ SWEEPS_LOWEST_AGREE = 0.9
 # each wrapper's launch counter, by the kernel's name in PERF.md
 COUNTERS = {"K1": cuda_cv.fused_sweep, "K2": cuda_cv.fused_sweep_bwd,
             "scatter": cuda_cv.sweep_scatter,
-            "K1-dot": cuda_cv.dot_sweep, "K3-fwd": pool.max_blur_pool,
+            "K1-dot": cuda_cv.dot_sweep,
+            "K1-dot d_cur": cuda_cv.dot_sweep_dcur,
+            "K3-fwd": pool.max_blur_pool,
             "K3-bwd": pool.max_blur_pool_bwd,
             "K5": early_sweeps.fused_feature_volume,
             "K4": early_sweeps.fused_warp_feature_volume}
@@ -264,14 +283,17 @@ def kernel_name(mangled: str) -> str:
             args = mangled[i:]
             return (name + ("<bf16>" if args.startswith("I13__nv_bfloat16")
                             else "<float>" if args.startswith("If") else "")
-                    + (" (dot)" if "Lb1E" in args.split("Ev")[0] else ""))
+                    + ((" (d_cur)" if name.startswith("fused_sweep_dot")
+                        else " (dot)")
+                       if "Lb1E" in args.split("Ev")[0] else ""))
 
 
 def phase_build():
     lib, seconds = _build.build()
     cuda_cv_lib = _build.load_library()
     for entry in ("fused_sweep_mlp", "fused_sweep_mlp_bwd", "sweep_scatter",
-                  "fused_sweep_dot", "max_blur_pool_fwd", "max_blur_pool_bwd",
+                  "fused_sweep_dot", "fused_sweep_dot_cur_grad",
+                  "max_blur_pool_fwd", "max_blur_pool_bwd",
                   "fused_feature_volume", "fused_warp_feature_volume"):
         assert getattr(cuda_cv_lib, entry) is not None, entry
     print(f"[build] {lib.name}: nvcc {seconds:.2f} s")
@@ -491,6 +513,21 @@ def dot_sweep_work(shape, dtype) -> tuple:
             samples * 4 * c * esize)
 
 
+def dcur_work(shape, dtype) -> tuple:
+    """(operations, bytes) of one call of K1-dot's d_cur mode at `shape`:
+    per (view, plane, pixel) the projection (9 FMAs), m * w_q for the four
+    taps (5 products), c FMAs for each tap and about 16 more operations
+    (divide, tap weights, mask); each input (the source maps, g) read and
+    d_cur (b, N, c) float32 written once."""
+    b, k, h, w, c, d = shape
+    n = h * w
+    esize = torch.tensor([], dtype=dtype).element_size()
+    samples = b * d * n * k
+    nbytes = (b * k * n * c * esize + b * d * n * 4 + b * n * c * 4
+              + (2 * b * k * 16 + b * 16 + b * d) * 4)
+    return samples * (2 * (9 + 4 * c) + 5 + 16), nbytes
+
+
 def pool_work(shape, dtype, backward: bool) -> tuple:
     """(operations, bytes) of one K3 call on an NCHW input of `shape`:
     three compares per 2x2 window and the 16-tap blur (or its transpose,
@@ -552,37 +589,61 @@ def index_add_ms(args, grads, reps: int) -> float:
     return ms
 
 
+def digest(t: torch.Tensor) -> str:
+    """The first 16 hex digits of the SHA-256 of a tensor's bytes."""
+    data = t.detach().cpu().contiguous().flatten().view(torch.uint8)
+    return hashlib.sha256(data.numpy().tobytes()).hexdigest()[:16]
+
+
+# (block, plane) pairs of the scatter's two paths over phases 6 and 9:
+# summed in a block's shared-memory window, added straight to device
+# memory
+SCATTER_PATHS = [0, 0]
+
+
 def check_scatter(shape, dtype, device, dot: bool, tag: str,
                   library: bool = False) -> dict:
     """The scatter against its plain version on seeded gradients at a
-    sweep `shape`, bit-identical over two calls; its time, the plain
-    version's, its bound and, with `library`, one `index_add_` call's."""
-    args, grads = scatter_case(*shape, dtype=dtype, device=device, seed=1,
-                               dot=dot)
-    before = cuda_cv.sweep_scatter.launches
-    got = cuda_cv.sweep_scatter(*args, **grads)
-    again = cuda_cv.sweep_scatter(*args, **grads)
-    want = cuda_cv.sweep_scatter_reference(*args, **grads)
-    torch.cuda.synchronize()
-    assert cuda_cv.sweep_scatter.launches == before + 2
-    assert torch.isfinite(got).all()
-    assert torch.equal(got, again), tag
-    err = (got - want).abs().max().item()
-    tol = SCATTER_TOL * max(1.0, want.abs().max().item())
-    del got, again, want
-    ms = cuda_ms(lambda: cuda_cv.sweep_scatter(*args, **grads), reps=10)
-    plain_ms = cuda_ms(lambda: cuda_cv.sweep_scatter_reference(
-        *args, **grads), reps=3, warmup=1)
-    library_ms = index_add_ms(args, grads, reps=3) if library else None
-    ops, nbytes = scatter_work(shape, dtype, dot)
-    bound = work_bound(ops, nbytes, PEAK_FLOPS[torch.float32])
-    print(f"[scatter] {tag}{' dot' if dot else ''}: shape {shape} "
-          f"max_abs_err {err:.3e} (tol {tol:.1e}); two calls bit-identical; "
-          f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms"
-          + (f" index_add_ {library_ms:.3f} ms" if library else "")
-          + f"; bound {bound[0]:.4f} ms by {bound[1]} ({ops / 1e9:.2f} "
-          f"GOP, {nbytes / 1e6:.1f} MB)")
-    assert err <= tol, (tag, err, tol)
+    sweep `shape`, with the cameras of each of `GEOMETRIES`, bit-identical
+    over two calls; the digest of d_src, the planes of each path, its
+    time, the plain version's, its bound and, with `library`, one
+    `index_add_` call's. Returns the numbers of the "close" geometry (the
+    training batch's cameras)."""
+    for geometry in GEOMETRIES:
+        args, grads = scatter_case(*shape, dtype=dtype, device=device,
+                                   seed=1, dot=dot, geometry=geometry)
+        before = cuda_cv.sweep_scatter.launches
+        got = cuda_cv.sweep_scatter(*args, **grads)
+        paths = cuda_cv.sweep_scatter.paths.tolist()
+        again = cuda_cv.sweep_scatter(*args, **grads)
+        want = cuda_cv.sweep_scatter_reference(*args, **grads)
+        torch.cuda.synchronize()
+        assert cuda_cv.sweep_scatter.launches == before + 2
+        assert torch.isfinite(got).all()
+        assert torch.equal(got, again), tag
+        SCATTER_PATHS[0] += paths[0]
+        SCATTER_PATHS[1] += paths[1]
+        err = (got - want).abs().max().item()
+        tol = SCATTER_TOL * max(1.0, want.abs().max().item())
+        out = digest(got)
+        del got, again, want
+        ms = cuda_ms(lambda: cuda_cv.sweep_scatter(*args, **grads), reps=10)
+        plain_ms = cuda_ms(lambda: cuda_cv.sweep_scatter_reference(
+            *args, **grads), reps=3, warmup=1)
+        library_ms = (index_add_ms(args, grads, reps=3)
+                      if library and geometry == "close" else None)
+        ops, nbytes = scatter_work(shape, dtype, dot)
+        bound = work_bound(ops, nbytes, PEAK_FLOPS[torch.float32])
+        print(f"[scatter] {tag}{' dot' if dot else ''} {geometry}: shape "
+              f"{shape} max_abs_err {err:.3e} (tol {tol:.1e}); two calls "
+              f"bit-identical; d_src {out}; window/global planes "
+              f"{paths[0]}/{paths[1]}; kernel {ms:.3f} ms plain "
+              f"{plain_ms:.3f} ms"
+              + (f" index_add_ {library_ms:.3f} ms" if library_ms else "")
+              + f"; bound {bound[0]:.4f} ms by {bound[1]} "
+              f"({ops / 1e9:.2f} GOP, {nbytes / 1e6:.1f} MB)")
+        assert err <= tol, (tag, geometry, err, tol)
+        del args, grads
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=bound,
                 library_ms=library_ms)
 
@@ -661,6 +722,9 @@ def _device_split(prof, steps: int) -> dict:
     families = (("K1", ("fused_sweep_mlp_kernel", "fused_sweep_mma_kernel")),
                 ("K2", ("fused_sweep_bwd", "sum_partials_kernel")),
                 ("scatter", ("sweep_scatter", "fixed_to_float")),
+                ("K1-dot d_cur", ("fused_sweep_dot_kernel<float, true",
+                                  "fused_sweep_dot_kernel<__nv_bfloat16, "
+                                  "true")),
                 ("K1-dot", ("fused_sweep_dot_kernel",)),
                 ("K3", ("max_blur_pool",)),
                 ("convolution", ("conv", "cudnn", "dgrad", "wgrad", "fprop",
@@ -710,10 +774,16 @@ def _series(losses, norms) -> str:
             + ", ".join(f"{x:.3f}" for x in norms))
 
 
+# the kernel families that run only inside a `record_function` range of
+# the dot training step
+RANGE_KERNELS = {"dot_sweep_backward": ("scatter", "K1-dot d_cur")}
+
+
 def _range_device_ms(prof, name: str, steps: int) -> float:
-    """Device time per step, in ms, of the kernels launched inside the
-    `record_function` range `name` (its CPU events' device time, which
-    counts the kernels of every op inside)."""
+    """Device time per step, in ms, of the kernels that PyTorch
+    operations launch inside the `record_function` range `name` (its CPU
+    events' device time, which counts the kernels of every operation
+    inside, not those launched through ctypes)."""
     total = sum(evt.device_time_total for evt in prof.events()
                 if evt.name == name
                 and evt.device_type == torch.autograd.DeviceType.CPU)
@@ -744,9 +814,17 @@ def profile_steps(model, optimizer, batch, generator, step: float,
     print(f"[{tag}] device ms/step by family: " + ", ".join(
         f"{name} {t:.2f}" for name, t in split.items()))
     for name in ranges:
-        ms = _range_device_ms(prof, name, steps)
+        # the profiler gives a range the kernels of the PyTorch operations
+        # inside it, not those launched through ctypes: add the families
+        # that run only inside it
+        ops = _range_device_ms(prof, name, steps)
+        own = sum(split[family] for family in RANGE_KERNELS.get(name, ()))
+        ms = ops + own
         print(f"[{tag}] device ms/step inside '{name}': {ms:.2f} "
-              f"({ms / max(busy, 1e-9):.3f} of busy)")
+              f"({ms / max(busy, 1e-9):.3f} of busy): PyTorch operations "
+              f"{ops:.2f}, its kernels "
+              + ", ".join(f"{family} {split[family]:.2f}"
+                          for family in RANGE_KERNELS.get(name, ())))
     print(f"[{tag}] top kernels ms/step: " + "; ".join(
         f"{t:.2f} {name[:60]}" for t, name in kernels[:10]))
     return split
@@ -815,12 +893,44 @@ def phase_train(device) -> dict:
     return dict(launches=counts, step_ms=step)
 
 
+@contextlib.contextmanager
+def warps_in_dot_backward():
+    """Counts the calls of the plain warp `sweep_warp` made inside the dot
+    backward while the context is open; yields the one-element count."""
+    inside, count = [False], [0]
+    backward, warp = cuda_cv.dot_sweep_backward, cv_ops.sweep_warp
+
+    def counted_backward(*args):
+        inside[0] = True
+        try:
+            return backward(*args)
+        finally:
+            inside[0] = False
+
+    def counted_warp(*args, **kwargs):
+        count[0] += inside[0]
+        return warp(*args, **kwargs)
+
+    cuda_cv.dot_sweep_backward, cv_ops.sweep_warp = (counted_backward,
+                                                     counted_warp)
+    try:
+        yield count
+    finally:
+        cuda_cv.dot_sweep_backward, cv_ops.sweep_warp = backward, warp
+
+
 def phase_dot_train(device) -> dict:
-    (model, optimizer, batch, generator, _, counts, step, changed,
-     total) = train_steps(dot_options(), device, "dot_train")
+    with warps_in_dot_backward() as warps:
+        (model, optimizer, batch, generator, _, counts, step, changed,
+         total) = train_steps(dot_options(), device, "dot_train")
     assert type(model.cost_volume).__name__ == "DotProductCostVolume"
-    assert_launches(counts, {"K1-dot": TRAIN_STEPS, "K3-fwd": TRAIN_STEPS,
-                             "K3-bwd": TRAIN_STEPS, "scatter": TRAIN_STEPS})
+    assert_launches(counts, {"K1-dot": TRAIN_STEPS,
+                             "K1-dot d_cur": TRAIN_STEPS,
+                             "K3-fwd": TRAIN_STEPS, "K3-bwd": TRAIN_STEPS,
+                             "scatter": TRAIN_STEPS})
+    print(f"[dot_train] plain warps inside the dot backward over "
+          f"{TRAIN_STEPS} steps: {warps[0]}")
+    assert warps[0] == 0, warps
     assert changed == total, (changed, total)
     profile_steps(model, optimizer, batch, generator, step, "dot_train",
                   ranges=("dot_sweep_backward",))
@@ -964,13 +1074,43 @@ def phase_dot_kernel(device) -> dict:
                       f"features: L2-rel {rel:.2e} "
                       f"(tol {DOT_BF16_L2_TOL:.0e})")
                 assert rel <= DOT_BF16_L2_TOL, (tag, rel)
-            # the dot backward: d_cur in plain PyTorch, d_src by the scatter
+            # K1-dot's d_cur mode against its plain version
             g = sweep_cotangent(b, d, h * w, device, seed=2)
-            before = cuda_cv.sweep_scatter.launches
+            dargs = [args[0]] + list(args[2:]) + [g]
+            before = cuda_cv.dot_sweep_dcur.launches
+            got = cuda_cv.dot_sweep_dcur(*dargs)
+            again = cuda_cv.dot_sweep_dcur(*dargs)
+            want = cuda_cv.dot_sweep_dcur_reference(*dargs)
+            torch.cuda.synchronize()
+            assert cuda_cv.dot_sweep_dcur.launches == before + 2
+            assert got.shape == (b, h * w, c) and torch.isfinite(got).all()
+            assert torch.equal(got, again), tag
+            err = (got - want).abs().max().item()
+            tol = DCUR_TOL * max(1.0, want.abs().max().item())
+            del got, again, want
+            ms = cuda_ms(lambda: cuda_cv.dot_sweep_dcur(*dargs), reps=20)
+            plain_ms = cuda_ms(
+                lambda: cuda_cv.dot_sweep_dcur_reference(*dargs), reps=5)
+            flops, nbytes = dcur_work(shape, dtype)
+            bound, bound_by = work_bound(flops, nbytes,
+                                         PEAK_FLOPS[torch.float32])
+            print(f"[dot_kernel] {tag} d_cur mode: max_abs_err {err:.3e} "
+                  f"(tol {tol:.1e}); two calls bit-identical; kernel "
+                  f"{ms:.3f} ms plain {plain_ms:.3f} ms; bound {bound:.4f} "
+                  f"ms by {bound_by} ({flops / 1e9:.2f} GFLOP on float32 "
+                  f"CUDA cores, {nbytes / 1e6:.1f} MB)")
+            assert err <= tol, (tag, err, tol)
+            entry["dcur"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 bound=(bound, bound_by))
+            # the dot backward: d_cur by that mode, d_src by the scatter
+            before = (cuda_cv.sweep_scatter.launches,
+                      cuda_cv.dot_sweep_dcur.launches)
             first = cuda_cv.dot_sweep_backward(*args, g)
             second = cuda_cv.dot_sweep_backward(*args, g)
             torch.cuda.synchronize()
-            assert cuda_cv.sweep_scatter.launches == before + 2
+            assert (cuda_cv.sweep_scatter.launches,
+                    cuda_cv.dot_sweep_dcur.launches) == (before[0] + 2,
+                                                         before[1] + 2)
             for grad, x, y in zip(("d_src", "d_cur"), first, second):
                 assert torch.isfinite(x).all() and torch.equal(x, y), (tag,
                                                                        grad)
@@ -985,6 +1125,10 @@ def phase_dot_kernel(device) -> dict:
             scatter = check_scatter(shape, dtype, device, dot=True, tag=tag)
             entry["scatter"] = scatter
             report[tag] = entry
+    print(f"[scatter] over phases 6 and 9: (block, plane) pairs summed in "
+          f"the window {SCATTER_PATHS[0]}, straight to device memory "
+          f"{SCATTER_PATHS[1]}")
+    assert SCATTER_PATHS[0] > 0 and SCATTER_PATHS[1] > 0, SCATTER_PATHS
     return report
 
 
@@ -1386,6 +1530,10 @@ def main():
                      "simplerecon_tpu_torch/csrc/fused_sweep.cu",
                      "simplerecon_tpu/ops/pallas_cv.py:747", dot_k["K1-dot"],
                      dot_kernel[b16]),
+        kernel_entry("fused_sweep_dot_cur_grad",
+                     "simplerecon_tpu_torch/csrc/fused_sweep.cu",
+                     "simplerecon_tpu/models/cost_volume.py:88",
+                     dot_k["K1-dot d_cur"], dot_kernel[b16]["dcur"]),
         kernel_entry("max_blur_pool_fwd",
                      "simplerecon_tpu_torch/csrc/max_blur_pool.cu",
                      "simplerecon_tpu/ops/pallas_pool.py:335",

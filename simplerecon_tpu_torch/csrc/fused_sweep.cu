@@ -55,17 +55,25 @@
 // cur>), and about 16 more operations (divide, tap weights, mask): 170
 // float32 operations at c = 16, 15 GFLOP at hero b16, or 0.22 ms on the
 // CUDA cores; its device memory traffic (source maps, cur and the
-// float32 output, about 101 MB at b16) takes 0.03 ms. This kernel
-// samples first and then dots (5c FMAs), as K1 does. The tap loads,
-// 4 x 32 B a sample in bf16 (11 GB at b16), come from L1 and L2.
-// Design: one thread per (pixel, plane), neighbouring threads on
-// neighbouring pixels (coalesced output, nearby taps), looping over the
-// views; each tap is two (bf16) or four (float32) 16-byte vector loads,
-// and the 16 reference channels stay in registers. The dot model's
-// matching features have c = 16, the only width K1-dot takes (the
-// wrapper raises on others). K1 and K1-dot share the projection and taps
-// (project_taps, bilinear), so they sample identically: features are
-// read in T and sampled and dotted in float32.
+// float32 output, about 101 MB at b16) takes 0.03 ms. The tap loads,
+// 4 x 32 B a sample in bf16 (11 GB at b16), come from L1 and L2. The
+// first design (one thread per (pixel, plane), each tap two or four
+// 16-byte loads of its own) took 1.07-1.09 ms at b16 bf16; the same
+// kernel with its tap loads alone took 0.87-0.95 ms, and with its
+// arithmetic alone (the loads made coalesced) 0.71-0.72 (an NVIDIA H100
+// 80GB HBM3 at 700 W, scripts/sweep_floor.py): the loads and the
+// instructions both bound it. This design (fused_sweep_dot_kernel below)
+// cuts instructions: a thread walks a run of planes of one pixel, with
+// its cur in registers, and dots each tap with cur as the tap's channels
+// arrive (4c + 4 FMAs), bf16 widened by a shift.
+// In float32 four lanes share a pixel, each loading a 16-byte slice of
+// every tap row, so a warp's load reads whole rows of 8 neighbouring
+// pixels. Its d_cur mode, the dot model's gradient for the reference
+// features, is the same loop with mask * g in place of cur.
+// The dot model's matching features have c = 16, the only width K1-dot
+// takes (the wrapper raises on others). K1 and K1-dot share the
+// projection and taps (project_taps), so they sample at the same points:
+// features are read in T and sampled and dotted in float32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -231,92 +239,208 @@ int launch_mma(const void* src, const void* cur, const void* proj,
   return (int)cudaGetLastError();
 }
 
-constexpr int kDotThreads = 256;  // pixels per block of the dot sweep
-constexpr int kDotC = 16;         // channel count with vector tap loads
+constexpr int kDotThreads = 256;
+constexpr int kDotC = 16;    // channel count of the vector tap loads
+constexpr int kDotRun = 8;   // planes a thread of the forward takes
 
-// Loads 16 channels of T from a 16-byte-aligned address as float32.
-__device__ __forceinline__ void load16(const float* p, float (&v)[kDotC]) {
-  const float4* q = reinterpret_cast<const float4*>(p);
+// V channels of a tap row from 16-byte loads, as float32 (a bf16 value is
+// the high half of a float32's bits, so the conversion is a shift or a
+// mask).
+template <int V>
+__device__ __forceinline__ void load_slice(const float* p, float (&v)[V]) {
 #pragma unroll
-  for (int i = 0; i < kDotC / 4; ++i) {
-    const float4 f = q[i];
+  for (int i = 0; i < V / 4; ++i) {
+    const float4 f = reinterpret_cast<const float4*>(p)[i];
     v[4 * i + 0] = f.x;
     v[4 * i + 1] = f.y;
     v[4 * i + 2] = f.z;
     v[4 * i + 3] = f.w;
   }
 }
-__device__ __forceinline__ void load16(const __nv_bfloat16* p,
-                                       float (&v)[kDotC]) {
-  const uint4* q = reinterpret_cast<const uint4*>(p);
+template <int V>
+__device__ __forceinline__ void load_slice(const __nv_bfloat16* p,
+                                           float (&v)[V]) {
 #pragma unroll
-  for (int i = 0; i < kDotC / 8; ++i) {
-    const uint4 u = q[i];
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  for (int i = 0; i < V / 8; ++i) {
+    const uint4 u = reinterpret_cast<const uint4*>(p)[i];
+    const unsigned words[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(h[e]);
-      v[8 * i + 2 * e + 0] = f.x;
-      v[8 * i + 2 * e + 1] = f.y;
+    for (int j = 0; j < 4; ++j) {
+      v[8 * i + 2 * j + 0] = __uint_as_float(words[j] << 16);
+      v[8 * i + 2 * j + 1] = __uint_as_float(words[j] & 0xffff0000u);
     }
   }
 }
 
-// One thread per (pixel, plane): out = sum over views of
-// mask * <bilinear sample, cur>. c is kDotC: each tap's channels are
-// vector loads from 16-byte-aligned maps.
+// Lanes that share a pixel, chosen by timing each count at hero b16
+// (scripts/sweep_floor.py --parts lanes; PERF.md): in bf16 one (a lane
+// loads both 16-byte halves of a tap row), in float32 four (4 channels,
+// one 16-byte load a tap row each).
 template <typename T>
+struct DotLanes {
+  static constexpr int L = sizeof(T) == 4 ? 4 : 1;
+};
+
+// K1-dot and its d_cur mode. L = DotLanes<T>::L lanes share a pixel
+// (neighbouring lanes on its slices of V = 16 / L channels). Each lane
+// walks the views and, inside, its planes, and takes each sample's taps
+// with `project_taps` (every lane of a pixel computes them): the first
+// design's points, bit for bit. (A projection stepped from plane to
+// plane, 3 FMAs a plane, rounds the points otherwise, and moved the dot
+// model's first float32 training step on the card from the CPU's by more
+// than chip_smoke.py's phase 13 allows.)
+// * forward (kCurGrad false): out = sum over views of mask * sum_q w_q
+//   <tap_q, cur>, the lane's slice of each dot as its channels arrive,
+//   the L slices summed by shuffles; a block takes 256 / L pixels and a
+//   run of kDotRun planes, whose sums stay in registers.
+// * d_cur (kCurGrad true): d_cur[pix, ch] = sum over views and planes of
+//   mask * g[plane, pix] * sample[ch], with sample = sum_q w_q tap_q; a
+//   block takes 128 / L pixels, its first 128 threads the first half of
+//   the planes and the others the second half, each in view order and
+//   plane order, and the first adds the second's sums from shared memory:
+//   a fixed order, so two calls give the same bits.
+template <typename T, bool kCurGrad>
 __global__ void __launch_bounds__(kDotThreads)
 fused_sweep_dot_kernel(const T* __restrict__ src, const T* __restrict__ cur,
+                       const float* __restrict__ g,
                        const float* __restrict__ proj,
                        const float* __restrict__ invK,
                        const float* __restrict__ planes,
                        float* __restrict__ out, int k, int h, int w, int d) {
+  constexpr int L = DotLanes<T>::L;
+  constexpr int V = kDotC / L;  // channels a lane loads
+  constexpr int kHalf = kDotThreads / 2;
+  __shared__ float halves[kCurGrad ? kHalf * V : 1];
   const int n = h * w;
-  const int pix = blockIdx.x * kDotThreads + threadIdx.x;
-  const int di = blockIdx.y;
   const int bi = blockIdx.z;
-  if (pix >= n) return;
-  const float plane = planes[bi * d + di];
-  const float3 ray = pixel_ray(invK + bi * 16, pix, w);
-  const float wx = ray.x * plane, wy = ray.y * plane, wz = ray.z * plane;
-
-  float cur_v[kDotC];
-  load16(cur + ((size_t)bi * n + pix) * kDotC, cur_v);
-  float total = 0.f;
-  for (int view = 0; view < k; ++view) {
-    const Taps t =
-        project_taps(proj + (bi * k + view) * 16, wx, wy, wz, h, w);
-    const T* img = src + (size_t)(bi * k + view) * n * kDotC;
-    float nw[kDotC], ne[kDotC], sw[kDotC], se[kDotC];
-    load16(img + (size_t)t.pix[0] * kDotC, nw);
-    load16(img + (size_t)t.pix[1] * kDotC, ne);
-    load16(img + (size_t)t.pix[2] * kDotC, sw);
-    load16(img + (size_t)t.pix[3] * kDotC, se);
-    float dot = 0.f;
+  const int slice = threadIdx.x % L;
+  const int part = kCurGrad ? threadIdx.x / kHalf : 0;
+  const int pix = kCurGrad
+                      ? blockIdx.x * (kHalf / L) + (threadIdx.x % kHalf) / L
+                      : blockIdx.x * (kDotThreads / L) + threadIdx.x / L;
+  const int p0 = kCurGrad ? (part ? d / 2 : 0) : blockIdx.y * kDotRun;
+  const int p1 = kCurGrad ? (part ? d : d / 2) : min(d, p0 + kDotRun);
+  // lanes past the last pixel take its taps (the shuffles and the barrier
+  // want every lane) and store nothing
+  const int pc = min(pix, n - 1);
+  const float3 ray = pixel_ray(invK + bi * 16, pc, w);
+  float cv[V], acc[V], total[kDotRun];
 #pragma unroll
-    for (int ch = 0; ch < kDotC; ++ch) {
-      dot = fmaf(bilinear(t, nw[ch], ne[ch], sw[ch], se[ch]), cur_v[ch], dot);
-    }
-    total += dot * t.mask;
+  for (int ch = 0; ch < V; ++ch) acc[ch] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kDotRun; ++j) total[j] = 0.f;
+  if (!kCurGrad) {
+    load_slice<V>(cur + ((size_t)bi * n + pc) * kDotC + slice * V, cv);
   }
-  out[((size_t)bi * d + di) * n + pix] = total;
+
+  for (int view = 0; view < k; ++view) {
+    const float* P = proj + (bi * k + view) * 16;
+    const T* img = src + (size_t)(bi * k + view) * n * kDotC + slice * V;
+    // plane p0 + j of this view
+    auto step = [&](int j) {
+      const int di = p0 + j;
+      const float plane = planes[bi * d + di];
+      const Taps t = project_taps(P, ray.x * plane, ray.y * plane,
+                                  ray.z * plane, h, w);
+      float v[4][V];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        load_slice<V>(img + (size_t)t.pix[q] * kDotC, v[q]);
+      }
+      if (kCurGrad) {
+        const float m = t.mask * g[((size_t)bi * d + di) * n + pc];
+        const float m0 = m * t.wt[0], m1 = m * t.wt[1];
+        const float m2 = m * t.wt[2], m3 = m * t.wt[3];
+#pragma unroll
+        for (int ch = 0; ch < V; ++ch) {
+          acc[ch] += m0 * v[0][ch] + m1 * v[1][ch] + m2 * v[2][ch] +
+                     m3 * v[3][ch];
+        }
+      } else {
+        float dq[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          dq[q] = 0.f;
+#pragma unroll
+          for (int ch = 0; ch < V; ++ch) dq[q] = fmaf(v[q][ch], cv[ch], dq[q]);
+        }
+        total[j] += t.mask * (t.wt[0] * dq[0] + t.wt[1] * dq[1] +
+                              t.wt[2] * dq[2] + t.wt[3] * dq[3]);
+      }
+    };
+    if (kCurGrad) {
+      for (int j = 0; j < p1 - p0; ++j) step(j);
+    } else {
+      // the forward's run unrolled, its sums in registers
+#pragma unroll
+      for (int j = 0; j < kDotRun; ++j) {
+        if (p0 + j < p1) step(j);
+      }
+    }
+  }
+  if (!kCurGrad) {
+#pragma unroll
+    for (int j = 0; j < kDotRun; ++j) {
+#pragma unroll
+      for (int o = L / 2; o > 0; o /= 2) {
+        total[j] += __shfl_xor_sync(0xffffffffu, total[j], o);
+      }
+      if (slice == 0 && pix < n && p0 + j < p1) {
+        out[((size_t)bi * d + p0 + j) * n + pix] = total[j];
+      }
+    }
+    return;
+  }
+  float* mine = halves + (threadIdx.x % kHalf) * V;
+  if (part == 1) {
+#pragma unroll
+    for (int ch = 0; ch < V; ++ch) mine[ch] = acc[ch];
+  }
+  __syncthreads();
+  if (part == 0 && pix < n) {
+    float* dst = out + ((size_t)bi * n + pix) * kDotC + slice * V;
+#pragma unroll
+    for (int ch = 0; ch < V; ch += 4) {
+      *reinterpret_cast<float4*>(dst + ch) =
+          make_float4(acc[ch] + mine[ch], acc[ch + 1] + mine[ch + 1],
+                      acc[ch + 2] + mine[ch + 2], acc[ch + 3] + mine[ch + 3]);
+    }
+  }
 }
 
+// cur_grad = 0: K1-dot, out (b, d, N) from cur; 1: d_cur (b, N, c) into
+// out from g (b, d, N) float32.
 template <typename T>
-int launch_dot(const void* src, const void* cur, const void* proj,
-               const void* invK, const void* planes, void* out, int b, int k,
-               int h, int w, int c, int d, cudaStream_t stream) {
+int launch_dot(int cur_grad, const void* src, const void* cur, const void* g,
+               const void* proj, const void* invK, const void* planes,
+               void* out, int b, int k, int h, int w, int c, int d,
+               cudaStream_t stream) {
   if (c != kDotC || reinterpret_cast<uintptr_t>(src) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(cur) % 16 != 0) {
+      (!cur_grad && reinterpret_cast<uintptr_t>(cur) % 16 != 0) ||
+      (cur_grad && reinterpret_cast<uintptr_t>(out) % 16 != 0)) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid((h * w + kDotThreads - 1) / kDotThreads, d, b);
-  fused_sweep_dot_kernel<T><<<grid, kDotThreads, 0, stream>>>(
-      static_cast<const T*>(src), static_cast<const T*>(cur),
-      static_cast<const float*>(proj), static_cast<const float*>(invK),
-      static_cast<const float*>(planes), static_cast<float*>(out), k, h, w,
-      d);
+  constexpr int L = DotLanes<T>::L;
+  const int n = h * w;
+  const T* s = static_cast<const T*>(src);
+  const T* cu = static_cast<const T*>(cur);
+  const float* gg = static_cast<const float*>(g);
+  const float* P = static_cast<const float*>(proj);
+  const float* ik = static_cast<const float*>(invK);
+  const float* pl = static_cast<const float*>(planes);
+  float* o = static_cast<float*>(out);
+  if (cur_grad) {
+    const int pixels = kDotThreads / 2 / L;
+    const dim3 grid((n + pixels - 1) / pixels, 1, b);
+    fused_sweep_dot_kernel<T, true><<<grid, kDotThreads, 0, stream>>>(
+        s, cu, gg, P, ik, pl, o, k, h, w, d);
+  } else {
+    const int pixels = kDotThreads / L;
+    const dim3 grid((n + pixels - 1) / pixels, (d + kDotRun - 1) / kDotRun,
+                    b);
+    fused_sweep_dot_kernel<T, false><<<grid, kDotThreads, 0, stream>>>(
+        s, cu, gg, P, ik, pl, o, k, h, w, d);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -350,12 +474,31 @@ extern "C" int fused_sweep_dot(int dtype, const void* src, const void* cur,
                                int h, int w, int c, int d, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch_dot<float>(src, cur, proj, invK, planes, out, b, k, h, w,
-                             c, d, s);
+    return launch_dot<float>(0, src, cur, nullptr, proj, invK, planes, out,
+                             b, k, h, w, c, d, s);
   }
   if (dtype == 1) {
-    return launch_dot<__nv_bfloat16>(src, cur, proj, invK, planes, out, b, k,
-                                     h, w, c, d, s);
+    return launch_dot<__nv_bfloat16>(0, src, cur, nullptr, proj, invK,
+                                     planes, out, b, k, h, w, c, d, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// K1-dot's d_cur mode: d_cur (b, N, c) float32 from the cotangent g
+// (b, d, N) float32 of K1-dot's output. dtype as above (of src).
+extern "C" int fused_sweep_dot_cur_grad(int dtype, const void* src,
+                                        const void* g, const void* proj,
+                                        const void* invK, const void* planes,
+                                        void* d_cur, int b, int k, int h,
+                                        int w, int c, int d, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch_dot<float>(1, src, nullptr, g, proj, invK, planes, d_cur,
+                             b, k, h, w, c, d, s);
+  }
+  if (dtype == 1) {
+    return launch_dot<__nv_bfloat16>(1, src, nullptr, g, proj, invK, planes,
+                                     d_cur, b, k, h, w, c, d, s);
   }
   return (int)cudaErrorInvalidValue;
 }

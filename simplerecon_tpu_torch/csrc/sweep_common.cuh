@@ -3,7 +3,7 @@
 // share `project`, the projection of a plane point into a source view
 // (K1's and K4's), the metadata rows and the MLP below. K1, K1-dot, K2
 // and the scatter of the sweeps' gradient (sweep_scatter.cu) share
-// `project_taps` and `bilinear`. The bf16 tensor-core kernels share the
+// `project_taps`, and K1 `bilinear`. The bf16 tensor-core kernels share the
 // last section: the bf16 input tile's metadata values, K1's and K2's
 // fill of it (`fill_inputs_bf16`), the weight copy, and the shared
 // memory and MLP call of the forward kernels K1, K4 and K5 (`MlpTile`),

@@ -106,10 +106,12 @@ def load_library() -> ctypes.CDLL:
     lib.fused_sweep_mlp.restype = ci
     lib.fused_sweep_mlp_bwd.argtypes = [ci] + [vp] * 20 + [ci] * 7 + [vp]
     lib.fused_sweep_mlp_bwd.restype = ci
-    lib.sweep_scatter.argtypes = [ci, ci] + [vp] * 9 + [ci] * 6 + [vp]
+    lib.sweep_scatter.argtypes = [ci, ci] + [vp] * 10 + [ci] * 6 + [vp]
     lib.sweep_scatter.restype = ci
     lib.fused_sweep_dot.argtypes = [ci] + [vp] * 6 + [ci] * 6 + [vp]
     lib.fused_sweep_dot.restype = ci
+    lib.fused_sweep_dot_cur_grad.argtypes = [ci] + [vp] * 6 + [ci] * 6 + [vp]
+    lib.fused_sweep_dot_cur_grad.restype = ci
     lib.fused_feature_volume.argtypes = [ci] + [vp] * 15 + [ci] * 5 + [vp]
     lib.fused_feature_volume.restype = ci
     lib.fused_warp_feature_volume.argtypes = ([ci] + [vp] * 14 + [ci] * 6

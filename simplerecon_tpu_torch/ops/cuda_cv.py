@@ -35,8 +35,9 @@ sequential grid gives. Its plain version is `sweep_scatter_reference`.
 `fused_sweep_dot` entry of `csrc/fused_sweep.cu`), which replaces
 `banded_warp_dot_volume` (the same `_banded_kernel` in mode "dot"); its
 plain version is `dot_sweep_reference`. `DotSweep` makes it
-differentiable with `dot_sweep_backward`, plain PyTorch but for its
-scatter, which on the card is `sweep_scatter`.
+differentiable with `dot_sweep_backward`: d_cur by K1-dot's d_cur mode
+(`dot_sweep_dcur`, the `fused_sweep_dot_cur_grad` entry; plain version
+`dot_sweep_dcur_reference`) and d_src by `sweep_scatter`.
 """
 
 from __future__ import annotations
@@ -352,7 +353,10 @@ def sweep_scatter(proj_bk44, cur_invK_b44, depth_planes_bd, max_abs,
 
     CPU tensors go to `sweep_scatter_reference`; CUDA tensors launch the
     kernel (`csrc/sweep_scatter.cu`), or raise. The bits do not depend on
-    the order of the sums: two calls give the same d_src.
+    the order of the sums: two calls give the same d_src. After a launch,
+    `sweep_scatter.paths` holds its int64 counts (on the card) of the
+    (block, plane) pairs whose sums went through a block's shared-memory
+    window and of those added straight to device memory.
     """
     samples = d_s_bkdNc is not None
     if samples == (g_bdN is not None or cur_bNc is not None):
@@ -385,24 +389,28 @@ def sweep_scatter(proj_bk44, cur_invK_b44, depth_planes_bd, max_abs,
     with torch.cuda.device(device):
         acc = torch.zeros((b, k, h, w, c), dtype=torch.int64, device=device)
         d_src = torch.empty((b, k, h, w, c), dtype=f32, device=device)
+        paths = torch.zeros((2,), dtype=torch.int64, device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
         ptrs = [0 if t is None else t.data_ptr() for t in (
             d_s_bkdNc, g_bdN, cur_bNc, proj_bk44, cur_invK_b44,
-            depth_planes_bd, max_abs, acc, d_src)]
+            depth_planes_bd, max_abs, acc, d_src, paths)]
         rc = lib.sweep_scatter(_build.DTYPE_CODES[cdt], int(not samples),
                                *ptrs, b, k, h, w, c, d, stream)
     _build.raise_on_error(lib, "sweep_scatter", rc)
     sweep_scatter.launches += 1
+    sweep_scatter.paths = paths
     return d_src
 
 
 sweep_scatter.launches = 0
+sweep_scatter.paths = None
 
 
 def check_dot_args(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44,
                    src_Ks_bk44, cur_invK_b44, depth_planes_bd) -> tuple:
-    """Raises on any feature or geometry argument the kernels do not take;
-    returns (b, k, h, w, c, d). The compute dtype is the features'."""
+    """Raises on any feature or geometry argument the kernels do not take
+    (cur_bNc None: not checked); returns (b, k, h, w, c, d). The compute
+    dtype is the features'."""
     device = src_feats_bkhwc.device
     cdt = src_feats_bkhwc.dtype
     if cdt not in _build.DTYPE_CODES:
@@ -412,7 +420,8 @@ def check_dot_args(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44,
     f32 = torch.float32
     check = _build.check
     check("src_feats", src_feats_bkhwc, cdt, (b, k, h, w, c), device)
-    check("cur_feats", cur_bNc, cdt, (b, h * w, c), device)
+    if cur_bNc is not None:
+        check("cur_feats", cur_bNc, cdt, (b, h * w, c), device)
     check("src_extrinsics", src_extrinsics_bk44, f32, (b, k, 4, 4), device)
     check("src_Ks", src_Ks_bk44, f32, (b, k, 4, 4), device)
     check("cur_invK", cur_invK_b44, f32, (b, 4, 4), device)
@@ -622,56 +631,113 @@ def dot_sweep_reference(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44,
     return torch.cat(chunks, dim=1)
 
 
+def dot_sweep_dcur_reference(src_feats_bkhwc, src_extrinsics_bk44,
+                             src_Ks_bk44, cur_invK_b44, depth_planes_bd,
+                             g_bdN) -> torch.Tensor:
+    """Plain PyTorch version of `dot_sweep_dcur`: the gather warp in
+    chunks of 8 planes, and d_cur += the sum over views and planes of
+    mask * g * sample, in float32 from features in the compute dtype.
+    Returns (b, N, c) float32."""
+    b, k, h, w, c = src_feats_bkhwc.shape
+    src = src_feats_bkhwc.float()
+    g_bdN = g_bdN.float()
+    d_cur = torch.zeros((b, h * w, c), dtype=torch.float32,
+                        device=src.device)
+    for s in range(0, depth_planes_bd.shape[1], REFERENCE_PLANE_CHUNK):
+        sl = slice(s, s + REFERENCE_PLANE_CHUNK)
+        warp = cv_ops.sweep_warp(src, src_extrinsics_bk44, src_Ks_bk44,
+                                 cur_invK_b44,
+                                 depth_planes_bd[:, sl].float())
+        m_bkdN = warp.mask_bkdN * g_bdN[:, None, sl]
+        d_cur += torch.einsum("bkdn,bkdnc->bnc", m_bkdN, warp.sampled_bkdNc)
+    return d_cur
+
+
+def dot_sweep_dcur(src_feats_bkhwc, src_extrinsics_bk44, src_Ks_bk44,
+                   cur_invK_b44, depth_planes_bd, g_bdN) -> torch.Tensor:
+    """The dot-product sweep's gradient for the reference features (K1-dot
+    in its d_cur mode): d_cur[b, pix] = the sum over planes and views of
+    mask * g[b, plane, pix] * the bilinear sample of the source features,
+    float32 (b, N, c), from the cotangent g (b, d, N) of `dot_sweep`'s
+    output. The other arguments are `dot_sweep`'s (without cur).
+
+    Each pixel's sum runs in a fixed order on the card, so two calls give
+    the same bits. CPU tensors go to `dot_sweep_dcur_reference`; CUDA
+    tensors launch the kernel (`fused_sweep_dot_cur_grad` of
+    `csrc/fused_sweep.cu`), or raise.
+    """
+    device = _build.kernel_device(src_feats_bkhwc, "dot_sweep_dcur")
+    if device is None:
+        return dot_sweep_dcur_reference(src_feats_bkhwc, src_extrinsics_bk44,
+                                        src_Ks_bk44, cur_invK_b44,
+                                        depth_planes_bd, g_bdN)
+    b, k, h, w, c, d = check_dot_args(src_feats_bkhwc, None,
+                                      src_extrinsics_bk44, src_Ks_bk44,
+                                      cur_invK_b44, depth_planes_bd)
+    check_dot_layout(src_feats_bkhwc, c)
+    _build.check("g", g_bdN, torch.float32, (b, d, h * w), device)
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        proj = torch.matmul(src_Ks_bk44, src_extrinsics_bk44).contiguous()
+        d_cur = torch.empty((b, h * w, c), dtype=torch.float32,
+                            device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        ptrs = [t.data_ptr() for t in (src_feats_bkhwc, g_bdN, proj,
+                                       cur_invK_b44, depth_planes_bd, d_cur)]
+        rc = lib.fused_sweep_dot_cur_grad(
+            _build.DTYPE_CODES[src_feats_bkhwc.dtype], *ptrs, b, k, h, w, c,
+            d, stream)
+    _build.raise_on_error(lib, "fused_sweep_dot_cur_grad", rc)
+    dot_sweep_dcur.launches += 1
+    return d_cur
+
+
+dot_sweep_dcur.launches = 0
+
+
 def dot_sweep_backward(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44,
                        src_Ks_bk44, cur_invK_b44, depth_planes_bd,
                        g_bdN) -> tuple:
     """Backward of the dot-product sweep, given the cotangent g (b, d, N)
     of its output: with m = mask * g per (view, plane, pixel),
-        d_cur = sum over views and planes of m * sample,
-        d_src = the bilinear transpose of m * cur (a scatter of the taps).
-    Geometry gets none. Recomputes the warp chunk by chunk for d_cur, in
-    plain PyTorch; returns float32 (d_src (b,k,h,w,c), d_cur (b,N,c)).
-
-    d_src: on the card one `sweep_scatter` launch over all planes, which
-    forms m * cur itself and sums in an order-free fixed-point form (the
-    same bits on every run); on the CPU `index_add_`, which sums in order
-    there. The JAX package has no backward kernel for the dot mode (it
-    trains the dot model through autodiff of its XLA warp). The work
-    shows in a profiler as the range "dot_sweep_backward".
+        d_cur = sum over views and planes of m * sample (`dot_sweep_dcur`),
+        d_src = the bilinear transpose of m * cur (`sweep_scatter`, which
+                forms m * cur itself and sums in an order-free fixed-point
+                form).
+    Geometry gets none. Returns float32 (d_src (b,k,h,w,c), d_cur
+    (b,N,c)). On the card both are kernels whose sums do not depend on
+    the order of the blocks: two calls give the same bits. On the CPU
+    their plain versions run. The JAX package has no backward kernel for
+    the dot mode (it trains the dot model through autodiff of its XLA
+    warp). The work shows in a profiler as the range "dot_sweep_backward".
     """
     b, k, h, w, c = src_feats_bkhwc.shape
-    f32 = torch.float32
-    on_card = _build.kernel_device(src_feats_bkhwc,
-                                   "dot_sweep_backward") is not None
     with torch.profiler.record_function("dot_sweep_backward"):
-        cur = cur_bNc.float()
-        src = src_feats_bkhwc.float()
-        g_bdN = g_bdN.to(f32)
-        d_cur = torch.zeros((b, h * w, c), dtype=f32, device=cur.device)
-        if not on_card:
-            d_src = torch.zeros((b * k * h * w, c), dtype=f32,
-                                device=cur.device)
-        for s in range(0, depth_planes_bd.shape[1], REFERENCE_PLANE_CHUNK):
-            sl = slice(s, s + REFERENCE_PLANE_CHUNK)
-            warp = cv_ops.sweep_warp(src, src_extrinsics_bk44, src_Ks_bk44,
-                                     cur_invK_b44,
-                                     depth_planes_bd[:, sl].float())
-            m_bkdN = warp.mask_bkdN * g_bdN[:, None, sl]
-            d_cur += torch.einsum("bkdn,bkdnc->bnc", m_bkdN,
-                                  warp.sampled_bkdNc)
-            if not on_card:
-                _scatter_taps_(d_src, m_bkdN[..., None] * cur[:, None, None],
-                               warp.pix_bkdN2, h, w)
-        if on_card:
-            # m * cur is bounded by max |g| * max |cur|
-            bound = (g_bdN.abs().amax() * cur.abs().amax()).reshape(1)
-            proj = torch.matmul(src_Ks_bk44.float(),
-                                src_extrinsics_bk44.float()).contiguous()
-            return sweep_scatter(proj, cur_invK_b44.float().contiguous(),
-                                 depth_planes_bd.float().contiguous(), bound,
-                                 h, w, g_bdN=g_bdN.contiguous(),
-                                 cur_bNc=cur_bNc.contiguous()), d_cur
-    return d_src.reshape(b, k, h, w, c), d_cur
+        g_bdN = g_bdN.float().contiguous()
+        planes = depth_planes_bd.float().contiguous()
+        invK = cur_invK_b44.float().contiguous()
+        d_cur = dot_sweep_dcur(src_feats_bkhwc, src_extrinsics_bk44,
+                               src_Ks_bk44, invK, planes, g_bdN)
+        # m * cur is bounded by max |g| * max |cur|
+        bound = (g_bdN.abs().amax() * cur_bNc.float().abs().amax()
+                 ).reshape(1)
+        proj = torch.matmul(src_Ks_bk44.float(),
+                            src_extrinsics_bk44.float()).contiguous()
+        d_src = sweep_scatter(proj, invK, planes, bound, h, w, g_bdN=g_bdN,
+                              cur_bNc=cur_bNc.contiguous())
+    return d_src, d_cur
+
+
+def check_dot_layout(src_feats_bkhwc, c: int, cur_bNc=None):
+    """Raises unless the features have the 16 channels K1-dot's vector
+    loads take and start on 16-byte boundaries."""
+    if c != DOT_CHANNELS:
+        raise ValueError(f"K1-dot takes {DOT_CHANNELS} feature channels, "
+                         f"got {c}")
+    for name, t in (("src_feats", src_feats_bkhwc), ("cur_feats", cur_bNc)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary for "
+                             "K1-dot's vector loads")
 
 
 def dot_sweep(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44, src_Ks_bk44,
@@ -692,13 +758,7 @@ def dot_sweep(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44, src_Ks_bk44,
     if device is None:
         return dot_sweep_reference(*args)
     b, k, h, w, c, d = check_dot_args(*args)
-    if c != DOT_CHANNELS:
-        raise ValueError(f"K1-dot takes {DOT_CHANNELS} feature channels, "
-                         f"got {c}")
-    for name, t in (("src_feats", src_feats_bkhwc), ("cur_feats", cur_bNc)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary for "
-                             "K1-dot's vector loads")
+    check_dot_layout(src_feats_bkhwc, c, cur_bNc)
     lib = _build.load_library()
     with torch.cuda.device(device):
         proj = torch.matmul(src_Ks_bk44, src_extrinsics_bk44).contiguous()
@@ -719,8 +779,9 @@ dot_sweep.launches = 0
 class DotSweep(torch.autograd.Function):
     """The differentiable dot-product sweep: forward `dot_sweep` (K1-dot
     on the card, its plain version on the CPU), backward
-    `dot_sweep_backward` (plain PyTorch). Gradients go to the source and
-    reference features, in their dtype; geometry gets none."""
+    `dot_sweep_backward` (K1-dot's d_cur mode and the scatter on the
+    card). Gradients go to the source and reference features, in their
+    dtype; geometry gets none."""
 
     @staticmethod
     def forward(ctx, src_feats_bkhwc, cur_bNc, src_extrinsics_bk44,

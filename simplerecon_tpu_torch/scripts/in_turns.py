@@ -18,11 +18,18 @@ the scatter of K2's d_src alone, in both its modes, on seeded gradients;
 K3-fwd and K3-bwd at the stem pool's shape for each batch size (8
 views a sample) and at a small odd shape, in float32 and bf16, through
 `ops/pool.py`'s public wrappers only, so a tree from before the phase
-runs it too. All three give the median CUDA-event ms of 10 calls after
-3 warm-up calls, and a digest of each output (its bytes' SHA-256), so
-that two trees' outputs can be compared bit for bit; "early_times" also
-digests the float32 K1, K5 and K4 at b=1. Every line a tree prints is
-prefixed with its name. Needs a CUDA card.
+runs it too; "scatter_times" times the scatter in both of its modes and
+both dtypes at a small odd shape and each batch size, with the cameras
+of both `testing.GEOMETRIES`, checks two calls give the same bits and,
+in a tree that counts them, prints the planes of each of its paths;
+"dot_times" times K1-dot, the dot backward and, in a tree that has it,
+K1-dot's d_cur mode, at the same shapes and geometries. The inputs of
+the last two come from the `testing.py` of the checkout that runs this
+script, so every tree gets the same ones. All give the median CUDA-event
+ms of 5 to 20 calls after 3 warm-up calls, and a digest of each output
+(its bytes' SHA-256), so that two trees' outputs can be compared bit for
+bit; "early_times" also digests the float32 K1, K5 and K4 at b=1. Every
+line a tree prints is prefixed with its name. Needs a CUDA card.
 """
 
 import argparse
@@ -30,8 +37,12 @@ import os
 import subprocess
 import sys
 
+from simplerecon_tpu_torch import testing
+
+CASES = os.path.abspath(testing.__file__)
+
 TREE_CODE = r"""
-import hashlib, statistics, sys, torch
+import hashlib, importlib.util, statistics, sys, torch
 import chip_smoke
 from simplerecon_tpu_torch.ops import cuda_cv, early_sweeps, pool
 from simplerecon_tpu_torch.testing import (pool_case, pool_cotangent,
@@ -41,6 +52,12 @@ try:
     from simplerecon_tpu_torch.testing import scatter_case
 except ImportError:  # a tree from before the scatter
     pass
+# the inputs of "scatter_times" and "dot_times" come from the testing
+# module of the checkout that runs this script, so every tree gets the
+# same inputs, in both geometries, whatever its own testing module has
+spec = importlib.util.spec_from_file_location("case_maker", sys.argv[3])
+case_maker = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(case_maker)
 
 def digest(t):
     data = t.detach().cpu().contiguous().flatten().view(torch.uint8)
@@ -116,12 +133,69 @@ def pool_times(device, batches):
                   f"K3-bwd {bwd:.4f} ms; output {out}, dx {dx}", flush=True)
             del x, g
 
+ODD = (2, 3, 13, 21, 16, 5)        # the dot model needs c = 16
+ODD_SCATTER = (2, 3, 13, 21, 8, 5)
+
+def scatter_times(device, batches):
+    for geometry in ("wide", "close"):
+        shapes = [ODD_SCATTER] + [(b,) + chip_smoke.HERO_SWEEP
+                                  for b in batches]
+        for shape in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                for dot in (False, True):
+                    args, grads = case_maker.scatter_case(
+                        *shape, dtype=dtype, device=device, seed=1, dot=dot,
+                        geometry=geometry)
+                    out = cuda_cv.sweep_scatter(*args, **grads)
+                    again = cuda_cv.sweep_scatter(*args, **grads)
+                    same = torch.equal(out, again)
+                    paths = getattr(cuda_cv.sweep_scatter, "paths", None)
+                    paths = ("" if paths is None else
+                             "; window/global planes "
+                             + "/".join(map(str, paths.tolist())))
+                    ms = chip_smoke.cuda_ms(
+                        lambda: cuda_cv.sweep_scatter(*args, **grads), 10)
+                    name = str(dtype).split(".")[-1]
+                    mode = "dot" if dot else "samples"
+                    print(f"[scatter_times] {geometry} {mode} {name} "
+                          f"{shape}: {ms:.3f} ms; d_src {digest(out)}, "
+                          f"two calls {'equal' if same else 'DIFFER'}"
+                          f"{paths}", flush=True)
+                    del args, grads, out, again
+
+def dot_times(device, batches):
+    dcur = getattr(cuda_cv, "dot_sweep_dcur", None)
+    for geometry in ("wide", "close"):
+        shapes = [ODD] + [(b,) + chip_smoke.HERO_SWEEP for b in batches]
+        for shape in shapes:
+            b, k, h, w, c, d = shape
+            for dtype in (torch.float32, torch.bfloat16):
+                args = case_maker.dot_case(*shape, dtype=dtype, device=device,
+                                           seed=1, geometry=geometry)
+                g = case_maker.sweep_cotangent(b, d, h * w, device, seed=2)
+                out = digest(cuda_cv.dot_sweep(*args))
+                ms = chip_smoke.cuda_ms(lambda: cuda_cv.dot_sweep(*args), 20)
+                bwd = chip_smoke.cuda_ms(
+                    lambda: cuda_cv.dot_sweep_backward(*args, g), 5)
+                d_src, d_cur = cuda_cv.dot_sweep_backward(*args, g)
+                line = (f"[dot_times] {geometry} {str(dtype).split('.')[-1]} "
+                        f"{shape}: K1-dot {ms:.3f} ms, output {out}; dot "
+                        f"backward {bwd:.3f} ms, d_src {digest(d_src)}, "
+                        f"d_cur {digest(d_cur)}")
+                if dcur is not None:
+                    dargs = [args[0]] + list(args[2:]) + [g]
+                    dms = chip_smoke.cuda_ms(lambda: dcur(*dargs), 20)
+                    line += f"; d_cur mode {dms:.3f} ms"
+                print(line, flush=True)
+                del args, g, d_src, d_cur
+
 device = torch.device("cuda", 0)
 chip_smoke.phase_card()
 chip_smoke.phase_build()
 batches = [int(x) for x in sys.argv[2].split(",")]
 for name in sys.argv[1].split(","):
-    if name in ("sweep_times", "early_times", "pool_times"):
+    if name in ("sweep_times", "early_times", "pool_times", "scatter_times",
+                "dot_times"):
         globals()[name](device, batches)
     else:
         getattr(chip_smoke, name)(device)
@@ -141,7 +215,8 @@ def main():
         tag = f"[turn {i + 1}: {tree}]"
         env = dict(os.environ, PYTHONPATH=root)
         proc = subprocess.Popen(
-            [sys.executable, "-c", TREE_CODE, opts.phases, opts.batches],
+            [sys.executable, "-c", TREE_CODE, opts.phases, opts.batches,
+             CASES],
             cwd=root, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
         for line in proc.stdout:

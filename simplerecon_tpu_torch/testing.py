@@ -68,18 +68,36 @@ def _rot_x(angle: float) -> np.ndarray:
     return m
 
 
+# the geometries of the sweep cases: "wide" turns and moves the source
+# cameras far; "close" draws them as `train_batch` does
+GEOMETRIES = ("wide", "close")
+
+
 def sweep_case(b: int, k: int, h: int, w: int, c: int, d: int,
-               dtype: torch.dtype, device, seed: int = 0) -> list:
+               dtype: torch.dtype, device, seed: int = 0,
+               geometry: str = "wide") -> list:
     """Arguments of `fused_sweep`, in order, on `device`.
 
-    Source cameras are rotated by up to ~0.2 rad and moved by up to
-    0.3 m, so taps fall off the image, and the last view is turned 100
-    degrees, so some plane points lie behind it.
+    "wide": source cameras are rotated by up to ~0.2 rad and moved by up
+    to 0.3 m, so taps fall off the image, and the last view is turned 100
+    degrees, so some plane points lie behind it. "close": as
+    `train_batch` draws them, a few degrees and at most 15 cm from the
+    reference camera on each axis, with `make_example_batch`'s
+    intrinsics (focal length half the image width), so neighbouring
+    pixels and consecutive planes sample the same taps.
     """
+    if geometry not in GEOMETRIES:
+        raise ValueError(f"geometry is one of {GEOMETRIES}, not {geometry}")
     rng = np.random.RandomState(seed)
     extr = np.zeros((b, k, 4, 4))
     for bi in range(b):
         for vi in range(k):
+            if geometry == "close":
+                rel = (_rot_x(rng.uniform(-0.05, 0.05))
+                       @ _rot_y(rng.uniform(-0.08, 0.08)))
+                rel[:3, 3] = rng.uniform(-0.15, 0.15, 3)
+                extr[bi, vi] = np.linalg.inv(rel)
+                continue
             m = (_rot_x(rng.uniform(-0.2, 0.2))
                  @ _rot_y(rng.uniform(-0.2, 0.2)))
             if vi == k - 1:
@@ -88,8 +106,12 @@ def sweep_case(b: int, k: int, h: int, w: int, c: int, d: int,
             extr[bi, vi] = m
     poses = np.linalg.inv(extr)
     K = np.eye(4)
-    K[0, 0], K[1, 1] = 0.9 * w, 1.2 * h
-    K[0, 2], K[1, 2] = w / 2 - 0.3, h / 2 + 0.2
+    if geometry == "close":
+        K[0, 0] = K[0, 2] = w / 2.0
+        K[1, 1] = K[1, 2] = h / 2.0
+    else:
+        K[0, 0], K[1, 1] = 0.9 * w, 1.2 * h
+        K[0, 2], K[1, 2] = w / 2 - 0.3, h / 2 + 0.2
     f32 = np.float32
     cin = mlp_in_channels(k, c)
 
@@ -117,10 +139,11 @@ def sweep_case(b: int, k: int, h: int, w: int, c: int, d: int,
 
 
 def dot_case(b: int, k: int, h: int, w: int, c: int, d: int,
-             dtype: torch.dtype, device, seed: int = 0) -> list:
+             dtype: torch.dtype, device, seed: int = 0,
+             geometry: str = "wide") -> list:
     """Arguments of `dot_sweep`, in order: `sweep_case`'s features and
     geometry."""
-    return sweep_case(b, k, h, w, c, d, dtype, device, seed)[:6]
+    return sweep_case(b, k, h, w, c, d, dtype, device, seed, geometry)[:6]
 
 
 def stack_case(b: int, k: int, h: int, w: int, c: int, d: int,
@@ -202,14 +225,15 @@ def sweep_cotangent(b: int, d: int, n: int, device, seed: int = 0
 
 def scatter_case(b: int, k: int, h: int, w: int, c: int, d: int,
                  dtype: torch.dtype, device, seed: int = 0,
-                 dot: bool = False) -> tuple:
+                 dot: bool = False, geometry: str = "wide") -> tuple:
     """`sweep_scatter`'s arguments at a sweep shape: (proj, invK, planes,
     max_abs, h, w) and its gradients as keywords, either seeded sample
     gradients d_s (b, k, d, N, c) in `dtype`, or (dot) a cotangent g
     (b, d, N) and the reference features cur (b, N, c) in `dtype`;
-    max_abs bounds |d_s| (for the dot model, max |g| * max |cur|)."""
+    max_abs bounds |d_s| (for the dot model, max |g| * max |cur|). The
+    cameras are `sweep_case`'s of `geometry`."""
     _, cur, extr, Ks, invK, planes = dot_case(b, k, h, w, c, d, dtype,
-                                              device, seed)
+                                              device, seed, geometry)
     proj = torch.matmul(Ks, extr).contiguous()
     if dot:
         g = sweep_cotangent(b, d, h * w, device, seed=seed + 1)

@@ -11,8 +11,10 @@ Tolerances:
   agrees to 1e-5 at 99% of pixels (an argmax: a near-tie may flip);
   the source mask exactly;
 - the gradients of the source and reference features against `jax.vjp`
-  of the XLA path: rtol 2e-4, atol 2e-4 x max |ref| (the same float32
-  sums in another order, over taps whose coordinates round differently);
+  of the XLA path, through `DotSweep` and, for the reference features,
+  through the plain version of K1-dot's d_cur mode alone: rtol 2e-4, atol
+  2e-4 x max |ref| (the same float32 sums in another order, over taps
+  whose coordinates round differently);
 - the model (64x96, k=2, d=8, flip off and on, the JAX sweep kernel in
   interpret mode): max |torch - jax| <= 2% of each map's std, with std
   >= 1e-2 asserted, as tests/test_torch_port_model.py holds the hero
@@ -117,7 +119,10 @@ def test_dot_volume_matches_jax(case):
         assert 0 < mask_t.float().mean() < 1
 
 
-def test_dot_sweep_gradient_matches_jax():
+@pytest.fixture(scope="module")
+def jax_dot_vjp():
+    """`jax.vjp` of the JAX XLA dot volume at the "wide" case: (inputs,
+    plane count, cotangent g (b, h, w, d), (d_cur, d_src))."""
     inputs, d = _volume_inputs("wide")
     cur, src = inputs[:2]
     b, h, w, _ = cur.shape
@@ -131,7 +136,12 @@ def test_dot_sweep_gradient_matches_jax():
     with jax.default_matmul_precision("highest"):
         want = jax.jit(lambda c_, s_, g_: jax.vjp(volume, c_, s_)[1](g_))(
             cur, src, g)
+    return inputs, d, g, [np.asarray(x) for x in want]
 
+
+def test_dot_sweep_gradient_matches_jax(jax_dot_vjp):
+    inputs, d, g, want = jax_dot_vjp
+    cur, src = inputs[:2]
     cur_t, src_t = _t(cur).requires_grad_(), _t(src).requires_grad_()
     before = cuda_cv.dot_sweep.launches
     vol = DotProductCostVolume(num_depth_bins=d)(cur_t, src_t,
@@ -139,10 +149,30 @@ def test_dot_sweep_gradient_matches_jax():
     vol.backward(_t(g))
     assert cuda_cv.dot_sweep.launches == before     # the plain version
     for got, ref in ((cur_t.grad, want[0]), (src_t.grad, want[1])):
-        ref = np.asarray(ref)
         assert np.abs(ref).max() > 1e-2
         np.testing.assert_allclose(got.numpy(), ref, rtol=VOLUME_TOL,
                                    atol=VOLUME_TOL * np.abs(ref).max())
+
+
+def test_dot_dcur_reference_matches_jax(jax_dot_vjp):
+    """K1-dot's d_cur mode has its own plain version, which the CPU runs:
+    the reference features' gradient alone, held to `jax.vjp`'s at the
+    tolerance above (the same float32 sums in another order)."""
+    inputs, d, g, want = jax_dot_vjp
+    cur, src, extr, _, Ks, invK = inputs
+    b, h, w, c = cur.shape
+    planes = cuda_cv.cv_ops.generate_depth_planes(b, d, 0.25, 5.0, "cpu")
+    g_bdN = _t(g.reshape(b, h * w, d).transpose(0, 2, 1))
+    args = (_t(src), _t(extr), _t(Ks), _t(invK), planes, g_bdN)
+    got = cuda_cv.dot_sweep_dcur_reference(*args)
+    assert got.shape == (b, h * w, c) and got.dtype == torch.float32
+    ref = want[0].reshape(b, h * w, c)
+    assert np.abs(ref).max() > 1e-2
+    np.testing.assert_allclose(got.numpy(), ref, rtol=VOLUME_TOL,
+                               atol=VOLUME_TOL * np.abs(ref).max())
+    before = cuda_cv.dot_sweep_dcur.launches
+    assert torch.equal(cuda_cv.dot_sweep_dcur(*args), got)
+    assert cuda_cv.dot_sweep_dcur.launches == before   # the plain version
 
 
 def test_dot_sweep_function_gives_geometry_no_gradient():

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the fused sweep (K1 forward, K2 backward), the order-free scatter
-of the sweeps' gradient, the dot-product sweep (K1-dot), the stem pool
+of the sweeps' gradient, the dot-product sweep (K1-dot) and its d_cur
+mode, the stem pool
 (K3 forward and backward) and the hero model's inference-only sweeps (K5
 over a warped stack, K4 the full-width fused warp). Marked `gpu`;
 skipped where there is no CUDA device. Run on the H100 with
@@ -44,14 +45,19 @@ The scatter (`sweep_scatter`, K2's d_src and the dot backward's): max
 `sweep_scatter_reference`, which sums the same 64-bit integers: they
 differ only where the projection's float32 sums, in another order, move
 a tap weight by an ulp of the pixel coordinate. Two calls give the same
-bits. The dot model's backward on the card (its d_src from the scatter,
-its d_cur from plain float32 products) gives the same bits from two
-calls.
+bits, whether a block sums in its shared-memory window (cameras as close
+as in training) or adds straight to device memory (source views zoomed
+in, so one plane's taps of a tile outgrow the window). The dot model's
+backward on the card (its d_src from the scatter, its d_cur from K1-dot's
+d_cur mode) gives the same bits from two calls.
 
 K1-dot: max |kernel - plain| <= 1e-4 * max(1, max |plain|) in float32
 and in bf16. Neither version rounds inside: both sample bf16 maps in
 float32 and dot in float32, so the two differ only by the order of the
-sums and by tap coordinates that round differently.
+sums and by tap coordinates that round differently. Its d_cur mode, the
+sum over planes and views of mask * g * sample, is held to its plain
+version by the same bound for the same reasons, and gives the same bits
+from two calls (each pixel's sum runs in a fixed order).
 
 K5 and K4: as K1 (the same MLP, summed in another order, behind inputs
 rounded at the same points), 1e-4 in float32 and 1e-2 in bf16, times
@@ -87,6 +93,7 @@ BWD_MAX_TOL = 1e-4                          # float32, odd shape
 BWD_L2_TOL = {torch.float32: 1e-2, torch.bfloat16: 0.1}
 BWD_SAME_ROUNDING_TOL = 2e-2                # bf16 against the bf16 plain
 DOT_TOL = 1e-4
+DCUR_TOL = 1e-4
 SCATTER_TOL = 1e-4
 POOL_TOL = 1e-5                             # float32
 POOL_BF16_REL = 2.0 ** -8
@@ -238,18 +245,42 @@ def test_dot_sweep_function_launches_the_kernel_once(cuda):
     args = dot_case(1, 2, 8, 8, 16, 3, dtype=torch.float32, device=cuda)
     args[0].requires_grad_()
     args[1].requires_grad_()
-    before = (cuda_cv.dot_sweep.launches, cuda_cv.sweep_scatter.launches)
+    counters = (cuda_cv.dot_sweep, cuda_cv.sweep_scatter,
+                cuda_cv.dot_sweep_dcur)
+    before = [fn.launches for fn in counters]
     out = cuda_cv.DotSweep.apply(*args)
     g = torch.randn_like(out)
     out.backward(g)
     d_src, d_cur = cuda_cv.dot_sweep_backward(*[a.detach() for a in args],
                                               g)
-    assert (cuda_cv.dot_sweep.launches,
-            cuda_cv.sweep_scatter.launches) == (before[0] + 1, before[1] + 2)
-    # d_src is summed in fixed point by the scatter kernel, d_cur by plain
-    # products in a fixed order: two calls give the same bits
+    assert [fn.launches - n for fn, n in zip(counters, before)] == [1, 2, 2]
+    # d_src is summed in fixed point by the scatter kernel, d_cur by K1-dot's
+    # d_cur mode in a fixed order: two calls give the same bits
     assert torch.equal(args[0].grad, d_src)
     assert torch.equal(args[1].grad, d_cur)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 3, 13, 21, 16, 5),
+                                   (1, 7, 96, 128, 16, 64)],
+                         ids=["odd", "hero"])
+def test_dcur_mode_matches_plain_version(cuda, dtype, shape):
+    b, k, h, w, c, d = shape
+    src, _, extr, Ks, invK, planes = dot_case(*shape, dtype=dtype,
+                                              device=cuda, seed=1)
+    g = sweep_cotangent(b, d, h * w, cuda, seed=2)
+    args = (src, extr, Ks, invK, planes, g)
+    before = cuda_cv.dot_sweep_dcur.launches
+    got = cuda_cv.dot_sweep_dcur(*args)
+    again = cuda_cv.dot_sweep_dcur(*args)
+    want = cuda_cv.dot_sweep_dcur_reference(*args)
+    torch.cuda.synchronize()
+    assert cuda_cv.dot_sweep_dcur.launches == before + 2
+    assert got.shape == (b, h * w, c) and got.dtype == torch.float32
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    err = (got - want).abs().max().item()
+    assert err <= DCUR_TOL * max(1.0, want.abs().max().item()), err
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -270,6 +301,38 @@ def test_scatter_kernel_matches_plain_version(cuda, mode, dtype, shape):
     assert got.shape == (b, k, h, w, c) and got.dtype == torch.float32
     assert torch.equal(got, again)
     want = cuda_cv.sweep_scatter_reference(*args, **grads)
+    err = (got - want).abs().max().item()
+    assert err <= SCATTER_TOL * max(1.0, want.abs().max().item()), err
+
+
+@pytest.mark.parametrize("geometry", ["close", "zoomed"])
+def test_scatter_takes_each_path(cuda, geometry):
+    """With cameras as close as in training, most blocks sum in their
+    shared-memory window; with the source views zoomed in 4x, one plane's
+    taps of a 16 x 16 tile span more pixels than the window holds, and the
+    blocks add straight to device memory. Either way the kernel matches
+    its plain version and gives the same bits twice."""
+    shape = (1, 7, 96, 128, 16, 64)
+    b, k, h, w, c, d = shape
+    args, grads = scatter_case(*shape, dtype=torch.bfloat16, device=cuda,
+                               seed=3, geometry="close")
+    if geometry == "zoomed":
+        proj = args[0].clone()
+        proj[:, :, :2] *= 4.0
+        args = (proj,) + args[1:]
+    got = cuda_cv.sweep_scatter(*args, **grads)
+    window, straight = cuda_cv.sweep_scatter.paths.tolist()
+    again = cuda_cv.sweep_scatter(*args, **grads)
+    want = cuda_cv.sweep_scatter_reference(*args, **grads)
+    torch.cuda.synchronize()
+    if geometry == "close":
+        # near planes, where a camera moved toward the scene magnifies the
+        # tile, may still go straight to device memory
+        assert window > 10 * straight, (window, straight)
+    else:
+        assert straight > 0, (window, straight)
+    assert torch.equal(got, again)
+    assert want.abs().max() > 0
     err = (got - want).abs().max().item()
     assert err <= SCATTER_TOL * max(1.0, want.abs().max().item()), err
 

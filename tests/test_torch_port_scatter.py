@@ -29,7 +29,8 @@ import torch
 
 from simplerecon_tpu_torch.ops import cost_volume as cv_ops
 from simplerecon_tpu_torch.ops import cuda_cv
-from simplerecon_tpu_torch.testing import dot_case, sweep_cotangent
+from simplerecon_tpu_torch.testing import (GEOMETRIES, dot_case,
+                                           scatter_case, sweep_cotangent)
 from test_torch_port_ops import few_torch_threads  # noqa: F401 (autouse)
 
 SHAPE = (2, 3, 13, 21, 8, 5)     # b, k, h, w, c, d
@@ -120,26 +121,66 @@ def test_scatter_reference_matches_the_plain_backwards(mode):
     src, cur, extr, Ks, invK, planes = dot_case(*SHAPE, dtype=torch.float32,
                                                 device="cpu", seed=3)
     proj = Ks @ extr
+    warp = cv_ops.sweep_warp(src, extr, Ks, invK, planes)
+    want = torch.zeros((b * k * h * w, c))
     if mode == "dot":
+        # the dot backward's d_src: the transpose of m * cur, m = mask * g
         g = sweep_cotangent(b, d, h * w, "cpu", seed=4)
-        want = cuda_cv.dot_sweep_backward(src, cur, extr, Ks, invK, planes,
-                                          g)[0]
+        m = warp.mask_bkdN * g[:, None]
+        cuda_cv._scatter_taps_(want, m[..., None] * cur[:, None, None],
+                               warp.pix_bkdN2, h, w)
         bound = (g.abs().amax() * cur.abs().amax()).reshape(1)
         got = cuda_cv.sweep_scatter_reference(proj, invK, planes, bound, h,
                                               w, g_bdN=g, cur_bNc=cur)
+        # which is what the dot backward returns on the CPU
+        assert torch.equal(got, cuda_cv.dot_sweep_backward(
+            src, cur, extr, Ks, invK, planes, g)[0])
     else:
         d_s = _samples(1.0, seed=5)[0]
-        warp = cv_ops.sweep_warp(src, extr, Ks, invK, planes)
-        want = torch.zeros((b * k * h * w, c))
         cuda_cv._scatter_taps_(want, d_s, warp.pix_bkdN2, h, w)
-        want = want.reshape(b, k, h, w, c)
         got = cuda_cv.sweep_scatter_reference(proj, invK, planes,
                                               d_s.abs().max(), h, w,
                                               d_s_bkdNc=d_s)
+    want = want.reshape(b, k, h, w, c)
     assert got.shape == (b, k, h, w, c) and got.dtype == torch.float32
     scale = want.abs().max().item()
     assert scale > 0
     assert (got - want).abs().max().item() <= GEOMETRY_TOL * scale
+
+
+@pytest.mark.parametrize("geometry", GEOMETRIES)
+def test_scatter_reference_bits_do_not_depend_on_the_order(geometry):
+    """The wrapper's plain version on `scatter_case`'s sample gradients,
+    with cameras far apart ("wide") and as close as in training
+    ("close", where neighbouring pixels and consecutive planes share
+    taps): the same bits as the same integers summed over the planes in
+    reverse and over the pixels shuffled."""
+    b, k, h, w, c, d = SHAPE
+    args, grads = scatter_case(*SHAPE, dtype=torch.float32, device="cpu",
+                               seed=8, geometry=geometry)
+    proj, invK, planes, bound, _, _ = args
+    d_s = grads["d_s_bkdNc"]
+    got = cuda_cv.sweep_scatter_reference(*args, **grads)
+    shift = cuda_cv.fixed_point_shift(bound.item(), 4 * d * h * w)
+    pix = cuda_cv._project(proj, invK, planes, h, w)[0]
+    perm = torch.from_numpy(np.random.RandomState(9).permutation(h * w))
+    acc = torch.zeros((b * k * h * w, c), dtype=torch.int64)
+    shared = torch.zeros(b * k * h * w)
+    for di in reversed(range(d)):
+        sl = slice(di, di + 1)
+        cuda_cv._scatter_taps_fixed_(acc, d_s[:, :, sl][:, :, :, perm],
+                                     pix[:, :, sl][:, :, :, perm], h, w,
+                                     shift)
+        for idx, wgt in cuda_cv._taps(pix[:, :, sl], h, w):
+            shared.index_add_(0, idx.reshape(-1),
+                              (wgt > 0).float().reshape(-1))
+    want = cuda_cv._fixed_to_float(acc, bound.item(), shift)
+    assert torch.equal(got, want.reshape(b, k, h, w, c))
+    if geometry == "close":
+        # most taps land inside the image, each reached from several
+        # samples
+        assert (shared > 0).float().mean() > 0.9
+        assert shared.max() >= 4 * d
 
 
 def test_scatter_wrapper_runs_its_plain_version_on_the_cpu():
