@@ -6,7 +6,8 @@ Phases, each printed on its own lines; any failure raises and exits
 non-zero, and only a run that passes them all prints the last line:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-2. build of the CUDA kernels from `simplerecon_tpu_torch/csrc`, timed;
+2. build of the CUDA kernels from `simplerecon_tpu_torch/csrc`, timed,
+   and of the eval path's native host libraries (`native/`, g++);
 3. the fused sweep kernel against its plain PyTorch version at the hero
    shape (b=1, k=7, 96x128, c=16, d=64) and at a small odd shape, in
    float32 (TF32 off) and bf16, and at hero b=8 and b=16 (the training
@@ -97,7 +98,21 @@ non-zero, and only a run that passes them all prints the last line:
    maps on the same frames against each other within a bf16 tolerance;
    then a b=8 forward of each, its time per frame and launches;
 16. the card against the CPU in float32 at 192x256, as in phase 5, for
-   "pallas_v1" and "pallas_full".
+   "pallas_v1" and "pallas_full";
+17. the eval CLI (`scripts/test.py`) as a user runs it: the hero YAML
+   (bf16, b16, 384x512, 8 views, 64 planes, `xla_fused`), the 48-frame
+   synthetic scene (41 tuples in batches of 16, 16, 9), metrics, TSDF
+   fusion at 4 cm and 3 m, a PLY: K1 launched once a batch and no other
+   kernel, finite metrics JSONs and mesh; loader wait, forward ms per
+   frame by CUDA events, metrics, TSDF, marching cubes and PLY times;
+18. the scene's 48 GT depths fused on the card against the JAX
+   package's grid, mesh counts and F1 against the room mesh
+   (`testing.GT_FUSION`), with the TSDF's ms per frame;
+19. the eval CLI on the card against the CPU in float32 at 192x256 (hero
+   widths, 9 frames, seeded weights through a checkpoint): cached
+   depths, metrics and meshes within `testing.EVAL_TOL`.
+Phases 7 and 12 end with two forward-and-backward passes from one state
+whose gradients must be the same bits.
 
 The line before the last is the kernel report as JSON (the seven
 kernels that replace the TPU kernels, the scatter that sums K2's d_src
@@ -112,6 +127,7 @@ import copy
 import hashlib
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -134,9 +150,22 @@ from simplerecon_tpu_torch.ops import (  # noqa: E402
     _build, cuda_cv, early_sweeps, pool)
 from simplerecon_tpu_torch.ops import cost_volume as cv_ops  # noqa: E402
 from simplerecon_tpu_torch.parallel import train  # noqa: E402
+from simplerecon_tpu_torch import native  # noqa: E402
+from simplerecon_tpu_torch.data import synthetic  # noqa: E402
+from simplerecon_tpu_torch.data.synthetic import make_room_mesh  # noqa: E402
+from simplerecon_tpu_torch.fusion.fusers import OurFuser  # noqa: E402
+from simplerecon_tpu_torch.fusion.mesh import read_ply  # noqa: E402
+from simplerecon_tpu_torch.options import OptionsHandler  # noqa: E402
+from simplerecon_tpu_torch.scripts import determinism  # noqa: E402
+from simplerecon_tpu_torch.scripts import test as eval_cli  # noqa: E402
+from simplerecon_tpu_torch.utils.checkpoint import \
+    save_checkpoint  # noqa: E402
+from simplerecon_tpu_torch.utils.mesh_metrics import \
+    evaluate_mesh  # noqa: E402
 from simplerecon_tpu_torch.testing import (  # noqa: E402
-    GEOMETRIES, POOL_CASES, SWEEP_GRAD_NAMES, dot_case, dot_options,
-    hero_options,
+    GEOMETRIES, GT_FUSION, POOL_CASES, SWEEP_GRAD_NAMES,
+    compare_cached_depths, compare_meshes, compare_metrics, dot_case,
+    dot_options, hero_options, synthetic_gt_bounds, synthetic_gt_frames,
     pool_case, pool_cotangent, posed_stream, relative_errors, scatter_case,
     shifted, spread_outputs_, stack_case, sweep_case, sweep_cotangent,
     train_batch, warp_case)
@@ -297,6 +326,11 @@ def phase_build():
                   "fused_feature_volume", "fused_warp_feature_volume"):
         assert getattr(cuda_cv_lib, entry) is not None, entry
     print(f"[build] {lib.name}: nvcc {seconds:.2f} s")
+    for name in ("rasterizer", "marching_cubes"):   # the eval path's host
+        t0 = time.perf_counter()                     # kernels
+        native_lib = native.load_library(name)
+        print(f"[build] {native_lib._name}: g++ and load "
+              f"{time.perf_counter() - t0:.2f} s")
     ptxas = lib.with_suffix(".ptxas.txt")
     if ptxas.exists():
         # per kernel: "Compiling entry function '<mangled>'", then its
@@ -879,6 +913,7 @@ def phase_train(device) -> dict:
     assert losses[-1] < losses[0], losses
     assert changed >= 0.95 * total, (changed, total)
     profile_steps(model, optimizer, batch, generator, step, "train")
+    assert_repeatable(model, batch, "train")
 
     # the same steps from the same init at a tenth of the learning rate
     del model, optimizer
@@ -934,6 +969,7 @@ def phase_dot_train(device) -> dict:
     assert changed == total, (changed, total)
     profile_steps(model, optimizer, batch, generator, step, "dot_train",
                   ranges=("dot_sweep_backward",))
+    assert_repeatable(model, batch, "dot_train")
     return dict(launches=counts, step_ms=step)
 
 
@@ -1458,6 +1494,188 @@ def phase_early_serve(device) -> dict:
     return {"K5": served["pallas_v1"]["K5"], "K4": served["pallas_full"]["K4"]}
 
 
+def assert_repeatable(model, batch, tag: str):
+    """Two forward and backward passes from the model's current state, as
+    the training step runs them: every gradient the same bits."""
+    loss_a, grads_a = determinism.grads_once(model, batch)
+    loss_b, grads_b = determinism.grads_once(model, batch)
+    differ = [name for name, a in grads_a.items()
+              if not torch.equal(a, grads_b[name])]
+    print(f"[{tag}] two passes from one state: loss {loss_a!r}, {loss_b!r};"
+          f" gradients that differ: {len(differ)} of {len(grads_a)}"
+          + (f" ({differ[:5]})" if differ else ""))
+    assert loss_a == loss_b and not differ, (tag, differ)
+    model.zero_grad(set_to_none=True)
+
+
+EVAL_OUT = "build/eval_out"
+SYNTHETIC_FRAMES = 48        # the synthetic scene's default length
+EVAL_CHECK_FRAMES = 9        # the card-against-CPU eval run: 2 tuples
+
+
+def eval_options(out: str, *extra):
+    """The eval CLI's options as a user gives them: the hero YAML, the
+    synthetic scene, fusion; `extra` flags after them."""
+    return OptionsHandler().parse_and_merge_options(cl_args_list=[
+        "--config_file", "configs/models/hero_model.yaml",
+        "--dataset", "synthetic", "--single_debug_scan_id", "scene",
+        "--split", "test", "--run_fusion", "--output_base_path", out,
+        *extra])
+
+
+def eval_results(opts) -> str:
+    return f"{opts.output_base_path}/{opts.name}/{opts.dataset}/" \
+        f"{opts.frame_tuple_type}"
+
+
+def check_eval_outputs(opts) -> tuple:
+    """The metrics JSONs hold finite scores and the scan's PLY finite
+    vertices; returns the mesh."""
+    results = eval_results(opts)
+    for name in ("all_frame_avg_metrics.json", "all_scene_avg_metrics.json",
+                 "scene_avg_metrics.json"):
+        with open(f"{results}/scores/{name}") as f:
+            scores = json.load(f)["scores"]
+        assert scores and all(np.isfinite(v) for v in scores.values()), name
+    verts, faces = read_ply(f"{results}/meshes/4cm_3.0m/scene.ply")
+    assert len(faces) > 0 and np.isfinite(verts).all(), len(faces)
+    return verts, faces
+
+
+def phase_eval_cli(device) -> dict:
+    """`scripts/test.py` as a user runs it: the hero YAML (bf16, b16,
+    384x512, 8 views, 64 planes, `xla_fused` -> K1), the 48-frame
+    synthetic scene (41 tuples: batches of 16, 16, 9), metrics, TSDF
+    fusion (4 cm, 3 m) and a PLY; K1 once a batch, no other kernel."""
+    shutil.rmtree(EVAL_OUT, ignore_errors=True)
+    opts = eval_options(EVAL_OUT)
+    assert (opts.batch_size, opts.compute_dtype, opts.image_height,
+            opts.image_width, opts.model_num_views,
+            opts.matching_num_depth_bins, opts.cost_volume_backend) == (
+        16, "bfloat16", 384, 512, 8, 64, "xla_fused"), opts
+    assert synthetic.DEFAULT_NUM_FRAMES == SYNTHETIC_FRAMES
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    frame_avg, _ = eval_cli.main(opts)
+    total = time.perf_counter() - t0
+    counts = launches()
+    stats = frame_avg.run_stats
+    assert (stats["frames"], stats["batches"], stats["fused_frames"]) == (
+        41, 3, 41), stats
+    assert_launches(counts, {"K1": stats["batches"]})
+    verts, faces = check_eval_outputs(opts)
+    n, batches = stats["frames"], stats["batches"]
+    print(f"[eval_cli] hero b{opts.batch_size} bf16 384x512, {n} frames in "
+          f"{batches} batches; launches {counts}; total {total:.2f} s")
+    print(f"[eval_cli] loader wait {stats['loader'] / batches * 1e3:.2f} "
+          f"ms/batch; forward {stats['forward_device'] / n * 1e3:.3f} "
+          f"ms/frame by CUDA events (per batch "
+          + ", ".join(f"{ms:.2f}" for ms in stats["batch_forward_ms"])
+          + f" ms), {stats['forward'] / n * 1e3:.3f} ms/frame by the host "
+          f"clock; metrics {stats['metrics'] / batches * 1e3:.2f} ms/batch;"
+          f" TSDF {stats['fusion'] / stats['fused_frames'] * 1e3:.3f} "
+          f"ms/fused frame over {stats['voxels']} voxels; marching cubes "
+          f"{stats['marching_cubes'] * 1e3:.1f} ms; PLY "
+          f"{stats['ply'] * 1e3:.1f} ms; mesh {len(verts)} vertices, "
+          f"{len(faces)} faces; abs_rel "
+          f"{frame_avg.final_metrics['abs_rel']:.4f} (seeded weights)")
+    return dict(launches=counts, stats=stats, total=total)
+
+
+def phase_gt_fusion(device) -> dict:
+    """The synthetic scene's 48 GT depths (at 192x256) through the port's
+    `OurFuser` on the card, bounded by the cameras' frustums at 3 m, 4 cm
+    voxels, scored against the room mesh: the JAX package's grid, mesh
+    counts within 1% and F1 within 0.005 (`testing.GT_FUSION`)."""
+    frames = synthetic_gt_frames()
+    fuser = OurFuser(fusion_resolution=0.04, max_fusion_depth=3.0,
+                     bounds_3x2=synthetic_gt_bounds(), device=device)
+    on_card = [{k: torch.from_numpy(np.asarray(v)).to(device)
+                for k, v in f.items()} for f in frames]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for f in on_card:
+        fuser.fuse_frames(f["depth_b1hw"][None], f["K"][None],
+                          f["cam_T_world"][None])
+    end.record()
+    end.synchronize()
+    fuse_ms = start.elapsed_time(end) / len(frames)
+    t0 = time.perf_counter()
+    verts, faces = fuser.get_mesh()
+    mc_ms = (time.perf_counter() - t0) * 1e3
+    room_v, room_f, _ = make_room_mesh()
+    scores = evaluate_mesh(verts, faces, room_v, room_f, num_points=100_000)
+    dims = tuple(fuser.fuser.tsdf.dims)
+    print(f"[gt_fusion] {len(frames)} frames into {dims} = "
+          f"{int(np.prod(dims))} voxels: {fuse_ms:.3f} ms/frame by CUDA "
+          f"events; marching cubes {mc_ms:.1f} ms; mesh {len(verts)} "
+          f"vertices, {len(faces)} faces (JAX {GT_FUSION['vertices']}, "
+          f"{GT_FUSION['faces']}); precision {scores['precision']:.4f} "
+          f"recall {scores['recall']:.4f} F1 {scores['f1']:.4f} (JAX "
+          f"{GT_FUSION['f1']:.4f})")
+    assert dims == GT_FUSION["dims"], dims
+    for got, want in ((len(verts), GT_FUSION["vertices"]),
+                      (len(faces), GT_FUSION["faces"])):
+        assert abs(got - want) <= 0.01 * want, (got, want)
+    assert abs(scores["f1"] - GT_FUSION["f1"]) <= 0.005, scores
+    return dict(fuse_ms=fuse_ms, voxels=int(np.prod(dims)))
+
+
+def phase_eval_card_vs_cpu(device):
+    """The eval CLI on the card and on the CPU in float32 at 192x256 (hero
+    widths, 9 frames: one batch of 2), the same seeded weights
+    (`spread_outputs_`, through a checkpoint): cached depths, per-frame
+    and per-scene metrics and meshes within `testing.EVAL_TOL`."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = "build/eval_card_vs_cpu"
+    shutil.rmtree(root, ignore_errors=True)
+    synthetic.DEFAULT_NUM_FRAMES = EVAL_CHECK_FRAMES
+    try:
+        runs = {}
+        for tag, dev in (("cpu", "cpu"), ("gpu", device)):
+            opts = eval_options(f"{root}/{tag}", "--image_height", "192",
+                                "--image_width", "256", "--precision", "32",
+                                "--cache_depths")
+            if not runs:
+                model = spread_outputs_(
+                    build_depth_model(opts, device="cpu", seed=3), seed=3)
+                ckpt = save_checkpoint(f"{root}/seeded.pt", model, opts)
+            opts.load_weights_from_checkpoint = ckpt
+            t0 = time.perf_counter()
+            runs[tag] = (opts, eval_cli.main(opts, device=dev))
+            print(f"[eval_card_vs_cpu] {tag} run "
+                  f"{time.perf_counter() - t0:.2f} s")
+    finally:
+        synthetic.DEFAULT_NUM_FRAMES = SYNTHETIC_FRAMES
+    (cpu_opts, (cpu_frames, cpu_scenes)), (gpu_opts, (gpu_frames,
+                                                      gpu_scenes)) = (
+        runs["cpu"], runs["gpu"])
+    assert len(gpu_frames.elem_metrics) == len(cpu_frames.elem_metrics) == 2
+    depths = compare_cached_depths(f"{eval_results(gpu_opts)}/depths/scene",
+                                   f"{eval_results(cpu_opts)}/depths/scene")
+    valid = 192 * 256 * 0.5
+    worst = dict(metric_rel=0.0, a_pixels=0.0)
+    for got, want in zip(
+            gpu_frames.elem_metrics + [gpu_frames.final_metrics,
+                                       gpu_scenes.final_metrics],
+            cpu_frames.elem_metrics + [cpu_frames.final_metrics,
+                                       cpu_scenes.final_metrics]):
+        for key, value in compare_metrics(got, want, valid).items():
+            worst[key] = max(worst[key], value)
+    mesh = compare_meshes(
+        f"{eval_results(gpu_opts)}/meshes/4cm_3.0m/scene.ply",
+        f"{eval_results(cpu_opts)}/meshes/4cm_3.0m/scene.ply")
+    print(f"[eval_card_vs_cpu] {depths['frames']} cached depths: largest "
+          f"relative difference {depths['depth_rel']:.2e}; metrics: "
+          f"continuous {worst['metric_rel']:.2e} relative, percentages "
+          f"{worst['a_pixels']:.2f} pixels; meshes {mesh['vertices']} "
+          f"vertices, {mesh['faces']} faces, F1 at 4 cm {mesh['f1']:.4f}")
+
+
 def kernel_entry(name, source, replaces, launches_on_path, measured) -> dict:
     bound, bound_by = measured["bound"]
     return {"name": name, "route": "cuda", "source": source,
@@ -1497,6 +1715,9 @@ def main():
             device, hero_options(image_height=192, image_width=256,
                                  precision="32", cost_volume_backend=backend),
             f"card_vs_cpu {backend}")
+    eval_run = phase_eval_cli(device)
+    phase_gt_fusion(device)
+    phase_eval_card_vs_cpu(device)
     loaded = [m for m in sys.modules if m in ("jax", "flax", "yaml", "PIL")
               or m == "simplerecon_tpu" or m.startswith("simplerecon_tpu.")]
     assert not loaded, f"the port pulled in {loaded}"
@@ -1511,7 +1732,12 @@ def main():
     print(f"[summary] inference: hero K1 {hero_infer}, K5 "
           f"{early_served['K5']}, K4 {early_served['K4']}; dot K1-dot "
           f"{dot_infer['K1-dot']}, K3-fwd {dot_infer['K3-fwd']}. training "
-          f"steps: hero {hero_k}; dot {dot_k}. run so far "
+          f"steps: hero {hero_k}; dot {dot_k}. eval CLI: K1 "
+          f"{eval_run['launches']['K1']}, forward "
+          f"{eval_run['stats']['forward_device'] * 1e3:.1f} ms, TSDF "
+          f"{eval_run['stats']['fusion'] * 1e3:.1f} ms, marching cubes "
+          f"{eval_run['stats']['marching_cubes'] * 1e3:.1f} ms, total "
+          f"{eval_run['total']:.1f} s. run so far "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         kernel_entry("fused_sweep_mlp",

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from simplerecon_tpu_torch.models.layers import BatchNorm2d, InstanceNorm32
 from simplerecon_tpu_torch.ops import pool
+from simplerecon_tpu_torch.ops.image import pad_edges
 
 
 class BlurPool(nn.Module):
@@ -35,6 +36,18 @@ class BlurPool(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return pool.blur_pool_reference(x, self.filt)
+
+
+class ReplicatePadConv2d(nn.Conv2d):
+    """`nn.Conv2d(..., padding_mode="replicate")` whose pad is
+    `ops/image.py::pad_edges`: the same values, and a backward that sums
+    in a fixed order."""
+
+    def _conv_forward(self, x, weight, bias):
+        ph, pw = self.padding
+        x = pad_edges(x, (pw, pw, ph, ph), "replicate")
+        return F.conv2d(x, weight, bias, self.stride, 0, self.dilation,
+                        self.groups)
 
 
 class StemPool(nn.Sequential):
@@ -99,8 +112,8 @@ class ResnetMatchingEncoder(nn.Module):
             nn.Conv2d(64, 128, 1),                                     # 5
             InstanceNorm32(),                                          # 6
             nn.LeakyReLU(0.2, inplace=True),                           # 7
-            nn.Conv2d(128, num_ch_out, 3, padding=1,
-                      padding_mode="replicate"),                       # 8
+            ReplicatePadConv2d(128, num_ch_out, 3, padding=1,
+                               padding_mode="replicate"),              # 8
             InstanceNorm32(),                                          # 9
         )
 

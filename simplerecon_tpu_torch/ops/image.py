@@ -34,9 +34,36 @@ def _gaussian_kernel_np(kernel_size: int, sigma: float) -> np.ndarray:
     return np.outer(g, g).astype(np.float32)
 
 
+def _pad_dim(x: torch.Tensor, dim: int, before: int, after: int,
+             mode: str) -> torch.Tensor:
+    n = x.shape[dim]
+    if mode == "reflect":
+        lo = x.narrow(dim, 1, before).flip(dim)
+        hi = x.narrow(dim, n - 1 - after, after).flip(dim)
+    elif mode == "replicate":
+        size = list(x.shape)
+        size[dim] = before
+        lo = x.narrow(dim, 0, 1).expand(size)
+        size[dim] = after
+        hi = x.narrow(dim, n - 1, 1).expand(size)
+    else:
+        raise ValueError(f"unknown pad mode {mode!r}")
+    return torch.cat([lo, x, hi], dim)
+
+
+def pad_edges(x_bchw: torch.Tensor, pads, mode: str) -> torch.Tensor:
+    """`F.pad(x, (left, right, top, bottom), mode)` for "reflect" and
+    "replicate", as copies of slices: the same values, and a backward
+    that sums each element's copies in a fixed order (F.pad's backward on
+    the card adds the border's copies with atomics, in no fixed order)."""
+    left, right, top, bottom = pads
+    x = _pad_dim(x_bchw, x_bchw.dim() - 1, left, right, mode)
+    return _pad_dim(x, x_bchw.dim() - 2, top, bottom, mode)
+
+
 def _pad(x_bhwc: torch.Tensor, pad: int, mode: str) -> torch.Tensor:
     """Pads h and w by `pad` on each side ("reflect" or "replicate")."""
-    x = F.pad(x_bhwc.permute(0, 3, 1, 2), (pad, pad, pad, pad), mode=mode)
+    x = pad_edges(x_bhwc.permute(0, 3, 1, 2), (pad, pad, pad, pad), mode)
     return x.permute(0, 2, 3, 1)
 
 
@@ -82,3 +109,16 @@ def pyrdown(x_bhwc: torch.Tensor, num_scales: int = 4) -> List[torch.Tensor]:
     for _ in range(num_scales - 1):
         out.append(blur_pool(out[-1]))
     return out
+
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def reverse_imagenet_normalize(image_bhw3: torch.Tensor) -> torch.Tensor:
+    """Undoes imagenet normalisation of an NHWC image."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=image_bhw3.dtype,
+                        device=image_bhw3.device)
+    std = torch.tensor(IMAGENET_STD, dtype=image_bhw3.dtype,
+                       device=image_bhw3.device)
+    return image_bhw3 * std + mean

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from simplerecon_tpu_torch.ops import _build
+from simplerecon_tpu_torch.ops.image import pad_edges
 
 _TAPS = (1.0, 3.0, 3.0, 1.0)
 
@@ -42,7 +43,7 @@ def blur_pool_reference(x_bchw: torch.Tensor, filt: torch.Tensor
                         ) -> torch.Tensor:
     """antialiased_cnns.BlurPool(filt_size=4, stride=2): reflect pad
     (1, 2, 1, 2), then the depthwise `filt` (C, 1, 4, 4) at stride 2."""
-    x = F.pad(x_bchw, (1, 2, 1, 2), mode="reflect")
+    x = pad_edges(x_bchw, (1, 2, 1, 2), "reflect")
     return F.conv2d(x, filt.to(x.dtype), stride=2, groups=x.shape[1])
 
 

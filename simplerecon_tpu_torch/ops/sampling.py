@@ -55,8 +55,46 @@ def resize_nearest(img_bhwc: torch.Tensor, out_h: int, out_w: int
     return img_bhwc[:, ys][:, :, xs]
 
 
+def _up2x_transpose(g: torch.Tensor, dim: int) -> torch.Tensor:
+    """The transpose of the bilinear x2 upsample (align_corners=False)
+    along `dim`: output 2i takes 3/4 of input i and 1/4 of input i-1,
+    output 2i+1 3/4 of i and 1/4 of i+1, indices clamped to the edges."""
+    shape = list(g.shape)
+    shape[dim] //= 2
+    shape.insert(dim + 1, 2)
+    pairs = g.reshape(shape)
+    ge, go = pairs.select(dim + 1, 0), pairs.select(dim + 1, 1)
+    n = ge.shape[dim]
+    out = 0.75 * (ge + go)
+    # 1/4 of output 2i reaches input i-1 (input 0 for i = 0), 1/4 of
+    # output 2i+1 input i+1 (input n-1 for i = n-1)
+    left = torch.zeros_like(out)
+    left.narrow(dim, 0, n - 1).add_(ge.narrow(dim, 1, n - 1))
+    left.narrow(dim, 0, 1).add_(ge.narrow(dim, 0, 1))
+    right = torch.zeros_like(out)
+    right.narrow(dim, 1, n - 1).add_(go.narrow(dim, 0, n - 1))
+    right.narrow(dim, n - 1, 1).add_(go.narrow(dim, n - 1, 1))
+    return out + 0.25 * left + 0.25 * right
+
+
+class _Upsample2x(torch.autograd.Function):
+    """F.interpolate's bilinear x2 forward, with a backward that sums in a
+    fixed order: on the card F.interpolate's backward adds with atomics,
+    in no fixed order."""
+
+    @staticmethod
+    def forward(ctx, x_bchw):
+        ctx.dtype = x_bchw.dtype
+        return F.interpolate(x_bchw, scale_factor=2, mode="bilinear",
+                             align_corners=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.to(torch.promote_types(g.dtype, torch.float32))
+        return _up2x_transpose(_up2x_transpose(g, 3), 2).to(ctx.dtype)
+
+
 def upsample2x(x_bchw: torch.Tensor) -> torch.Tensor:
     """Bilinear x2 upsample, align_corners=False: the decoder's
     upsampler. NCHW."""
-    return F.interpolate(x_bchw, scale_factor=2, mode="bilinear",
-                         align_corners=False)
+    return _Upsample2x.apply(x_bchw)

@@ -8,6 +8,13 @@ Parameters and optimizer state are float32; with a bf16 model the
 convolutions run under autocast and the sweep in bf16, while pose math
 and the losses stay float32.
 
+The step's forward and backward run cuDNN's deterministic convolution
+algorithms (`deterministic_convolutions`); the model's other operations
+whose backward the card would sum with atomics (the decoder's upsample,
+the reflect and replicate pads) are written to sum in a fixed order. So
+two steps from one state give the same bits on the card, as the JAX
+package's do; inference keeps cuDNN's default choice.
+
 Batch schema (`make_example_batch`): {"cur": ..., "src": ...} dicts of
 tensors with the reference's key names; GT depth is at s0 resolution
 (half the input image).
@@ -15,6 +22,7 @@ tensors with the reference's key names; GT depth is at s0 resolution
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Tuple
 
 import numpy as np
@@ -181,6 +189,29 @@ def forward_and_losses(model: nn.Module, batch: Dict, flip: bool
     return loss_lib.compute_losses(loss_cur, loss_src, outputs), outputs
 
 
+@contextlib.contextmanager
+def deterministic_convolutions():
+    """cuDNN's deterministic algorithms while the context is open (its
+    default backward algorithms sum in an order that changes from run to
+    run); the earlier setting after."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def loss_and_backward(model: nn.Module, batch: Dict, flip: bool) -> Dict:
+    """Forward in the model's current mode, losses and backward, with
+    deterministic convolutions: the loss dictionary, with each
+    parameter's gradient added to its `.grad`."""
+    with deterministic_convolutions():
+        loss_dict, _ = forward_and_losses(model, batch, flip)
+        loss_dict["loss"].backward()
+    return loss_dict
+
+
 def train_step(model: nn.Module, optimizer: Optimizer, batch: Dict,
                generator: torch.Generator) -> Dict[str, torch.Tensor]:
     """One training step: a flip coin drawn from `generator`, forward in
@@ -190,8 +221,7 @@ def train_step(model: nn.Module, optimizer: Optimizer, batch: Dict,
     flip = bool(torch.rand((), generator=generator) < 0.5)
     model.train()
     optimizer.zero_grad()
-    loss_dict, _ = forward_and_losses(model, batch, flip)
-    loss_dict["loss"].backward()
+    loss_dict = loss_and_backward(model, batch, flip)
     grad_norm = optimizer.step()
     metrics = {key: value.detach() for key, value in loss_dict.items()}
     metrics["grad_norm"] = grad_norm

@@ -11,7 +11,7 @@ with a seed, so two devices see the same values.
 
 from __future__ import annotations
 
-import types
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -23,35 +23,33 @@ from simplerecon_tpu_torch.ops import geometry as geo
 from simplerecon_tpu_torch.ops.cuda_cv import HIDDEN, mlp_in_channels
 from simplerecon_tpu_torch.parallel.train import make_example_batch
 
-# configs/models/hero_model.yaml over the Options defaults, as far as the
-# inference path and the training step read them
-HERO_OPTIONS = dict(
-    feature_volume_type="mlp_feature_volume", matching_encoder_type="resnet",
-    image_height=384, image_width=512, matching_scale=1,
-    matching_num_depth_bins=64, min_matching_depth=0.25,
-    max_matching_depth=5.0, matching_feature_dims=16,
-    matching_pool_impl="reference", model_num_views=8, precision="16",
-    cost_volume_backend="xla_fused", fast_cost_volume=False,
-    test_keyframe_buffer_size=30, lr=1e-4, wd=1e-4,
-    lr_steps=(70000, 80000), grad_clip=0.0)
+# the model configs, at the root of the checkout
+CONFIGS = Path(__file__).resolve().parents[1] / "configs" / "models"
 
 
-# configs/models/dot_product_model.yaml over the Options defaults: the
-# hero values but the dot-product cost volume; this path runs it with the
-# fused stem pool (K3)
-DOT_OPTIONS = dict(HERO_OPTIONS, feature_volume_type="simple_cost_volume",
-                   matching_pool_impl="pallas")
+def model_options(config: str, **overrides):
+    """`Options` from the model config `configs/models/<config>`, with
+    `overrides` set after it."""
+    # imported here: `scripts/in_turns.py` loads this module into older
+    # checkouts, which have no options module
+    from simplerecon_tpu_torch.options import Options, load_options_yaml
+    opts = Options()
+    opts.update_from(load_options_yaml(str(CONFIGS / config)))
+    opts.update_from(overrides)
+    return opts
 
 
-def hero_options(**overrides) -> types.SimpleNamespace:
-    """A plain namespace with the hero model's option values."""
-    return types.SimpleNamespace(**{**HERO_OPTIONS, **overrides})
+def hero_options(**overrides):
+    """The hero model's options: `configs/models/hero_model.yaml`."""
+    return model_options("hero_model.yaml", **overrides)
 
 
-def dot_options(**overrides) -> types.SimpleNamespace:
-    """A plain namespace with the dot-product model's option values, with
-    `matching_pool_impl="pallas"`."""
-    return types.SimpleNamespace(**{**DOT_OPTIONS, **overrides})
+def dot_options(**overrides):
+    """The dot-product model's options:
+    `configs/models/dot_product_model.yaml`, with the fused stem pool (K3,
+    `matching_pool_impl="pallas"`)."""
+    return model_options("dot_product_model.yaml",
+                         **{"matching_pool_impl": "pallas", **overrides})
 
 
 def _rot_y(angle: float) -> np.ndarray:
@@ -355,3 +353,126 @@ def spread_outputs_(model: nn.Module, seed: int = 0,
         head.weight.mul_(head_scale)
         head.bias.mul_(head_scale)
     return model
+
+
+def synthetic_gt_frames(num_frames: int = 48, image_height: int = 384,
+                        image_width: int = 512) -> list:
+    """The synthetic scene's GT depth of every frame, at the model's output
+    size (half the image: `depth_b1hw`, sampled from the render, 0 where
+    nothing was hit), with its intrinsics `K` at that size, the poses,
+    `invK` and the image: a list of numpy dicts, one a frame."""
+    from simplerecon_tpu_torch.data.synthetic import SyntheticDataset
+    dataset = SyntheticDataset(num_frames=num_frames,
+                               image_height=image_height,
+                               image_width=image_width, split="test")
+    frames = []
+    for i in range(num_frames):
+        f = dataset.get_frame("scene", str(i), load_depth=True)
+        frames.append(dict(depth_b1hw=np.nan_to_num(f["depth_b1hw"]),
+                           K=f["K_s0_b44"], invK=f["invK_s0_b44"],
+                           cam_T_world=f["cam_T_world_b44"],
+                           world_T_cam=f["world_T_cam_b44"],
+                           image_b3hw=f["image_b3hw"]))
+    return frames
+
+
+def synthetic_gt_bounds(num_frames: int = 48, image_height: int = 384,
+                        image_width: int = 512) -> np.ndarray:
+    """TSDF bounds from the frustums of all the scene's cameras at 3 m."""
+    from simplerecon_tpu_torch.data.synthetic import camera_trajectory
+    from simplerecon_tpu_torch.fusion.fusers import bounds_from_trajectory
+    frame = synthetic_gt_frames(1, image_height, image_width)[0]
+    poses = np.stack([p.astype(np.float32)
+                      for p in camera_trajectory(num_frames)])
+    return bounds_from_trajectory(poses, 3.0, invK_44=frame["invK"],
+                                  image_hw=(image_height // 2,
+                                            image_width // 2))
+
+
+# The JAX package's fusion of `synthetic_gt_frames()` into a 4 cm TSDF
+# within `synthetic_gt_bounds()` (3 m), on the CPU
+# (tests/test_torch_port_fusion.py::test_full_width_gt_fusion_reference),
+# and its mesh against `make_room_mesh()` by `evaluate_mesh(...,
+# num_points=100_000)`
+GT_FUSION = dict(dims=(136, 96, 176), vertices=9669, faces=18885,
+                 precision=1.0, recall=0.38059, f1=0.551343990612709)
+
+
+# Two runs of the eval CLI on the same weights and frames (the port
+# against the JAX CLI on the CPU, or the port on the card against the
+# CPU), float32: the cached s0 depths to rtol/atol (the same float32
+# products summed in other orders through ~100 layers); the continuous
+# metrics to `metric_rtol`; the inlier percentages within `a_pixels`
+# pixels' worth of a frame's valid pixels (a depth within rounding of a
+# threshold lands on either side); the meshes' vertex and face counts
+# within `mesh_count_rtol` of the larger, or `mesh_count_atol` (a voxel
+# whose value changes sign remakes the triangles of its 8 cubes), and
+# F1 >= `mesh_f1` between the two at one voxel (4 cm)
+EVAL_TOL = dict(depth_rtol=1e-4, depth_atol=1e-5, metric_rtol=1e-4,
+                a_pixels=2, mesh_count_rtol=0.01, mesh_count_atol=16,
+                mesh_f1=0.99)
+CONTINUOUS_METRICS = ("abs_diff", "abs_rel", "sq_rel", "rmse", "rmse_log")
+RATIO_METRICS = ("a5", "a10", "a25", "a0", "a1", "a2", "a3")
+
+
+def compare_cached_depths(got_dir: str, want_dir: str) -> dict:
+    """Asserts the `--cache_depths` pickles of two runs agree within
+    `EVAL_TOL` (intrinsics, poses and frame ids exactly); returns the
+    number of frames and the largest relative depth difference."""
+    import glob
+    import os
+    import pickle
+    paths = sorted(glob.glob(os.path.join(want_dir, "*.pickle")))
+    worst = 0.0
+    for path in paths:
+        with open(path, "rb") as f:
+            want = pickle.load(f)
+        with open(os.path.join(got_dir, os.path.basename(path)), "rb") as f:
+            got = pickle.load(f)
+        assert sorted(got) == sorted(want)
+        assert got["frame_id"] == want["frame_id"]
+        for key in ("K_full_depth_b44", "K_s0_b44", "world_T_cam_b44",
+                    "cam_T_world_b44"):
+            np.testing.assert_array_equal(got[key], want[key], key)
+        for key in ("depth_pred_s0_b1hw", "lowest_cost_bhw"):
+            assert got[key].shape == want[key].shape, key
+            np.testing.assert_allclose(
+                got[key], want[key], rtol=EVAL_TOL["depth_rtol"],
+                atol=EVAL_TOL["depth_atol"], err_msg=key)
+            worst = max(worst, float(np.max(np.abs(got[key] - want[key])
+                                            / np.abs(want[key]))))
+    return dict(frames=len(paths), depth_rel=worst)
+
+
+def compare_metrics(got: dict, want: dict, valid_pixels: float) -> dict:
+    """Asserts two metric dicts agree within `EVAL_TOL` (`model_time`
+    aside); returns the largest relative difference of the continuous
+    metrics and the largest difference of the percentages, in pixels."""
+    keys = sorted(k for k in want if k != "model_time")
+    assert sorted(k for k in got if k != "model_time") == keys
+    rel = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+              for k in CONTINUOUS_METRICS)
+    pixels = max(abs(got[k] - want[k]) * valid_pixels / 100.0
+                 for k in RATIO_METRICS)
+    assert rel <= EVAL_TOL["metric_rtol"], (rel, got, want)
+    assert pixels <= EVAL_TOL["a_pixels"], (pixels, got, want)
+    return dict(metric_rel=rel, a_pixels=pixels)
+
+
+def compare_meshes(got_ply: str, want_ply: str) -> dict:
+    """Asserts two PLY meshes agree within `EVAL_TOL`; returns their
+    counts and the F1 between them at one voxel."""
+    from simplerecon_tpu_torch.fusion.mesh import read_ply
+    from simplerecon_tpu_torch.utils.mesh_metrics import evaluate_mesh
+    got_v, got_f = read_ply(got_ply)
+    want_v, want_f = read_ply(want_ply)
+    assert len(want_f) > 0, want_ply
+    scores = evaluate_mesh(got_v, got_f, want_v, want_f, num_points=20_000,
+                           threshold=0.04)
+    measured = dict(vertices=(len(got_v), len(want_v)),
+                    faces=(len(got_f), len(want_f)), f1=scores["f1"])
+    for got, want in (measured["vertices"], measured["faces"]):
+        assert abs(got - want) <= max(EVAL_TOL["mesh_count_rtol"] * want,
+                                      EVAL_TOL["mesh_count_atol"]), measured
+    assert scores["f1"] >= EVAL_TOL["mesh_f1"], measured
+    return measured

@@ -487,3 +487,104 @@ def test_early_kernel_wrappers_reject_what_they_do_not_take(cuda):
     before = early_sweeps.fused_warp_feature_volume.launches
     early_sweeps.fused_warp_feature_volume(*warp)
     assert early_sweeps.fused_warp_feature_volume.launches == before + 1
+
+
+def _eval_opts(out, *extra):
+    from simplerecon_tpu_torch.options import OptionsHandler
+    return OptionsHandler().parse_and_merge_options(cl_args_list=[
+        "--config_file", "configs/models/hero_model.yaml",
+        "--dataset", "synthetic", "--single_debug_scan_id", "scene",
+        "--split", "test", "--run_fusion", "--cache_depths",
+        "--output_base_path", str(out), "--image_height", "64",
+        "--image_width", "96", "--num_images_in_tuple", "4",
+        "--model_num_views", "4", "--matching_num_depth_bins", "8",
+        "--precision", "32", "--batch_size", "2", "--num_workers", "2",
+        *extra])
+
+
+def test_eval_cli_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
+    """The eval CLI at 64x96 float32 on the card and on the CPU, the same
+    seeded weights: cached depths, metrics and meshes within
+    `testing.EVAL_TOL`; K1 launched once a batch."""
+    from simplerecon_tpu_torch.data import synthetic
+    from simplerecon_tpu_torch.models.depth_model import build_depth_model
+    from simplerecon_tpu_torch.scripts import test as eval_cli
+    from simplerecon_tpu_torch.testing import (compare_cached_depths,
+                                               compare_meshes,
+                                               compare_metrics,
+                                               spread_outputs_)
+    from simplerecon_tpu_torch.utils.checkpoint import save_checkpoint
+    monkeypatch.setattr(synthetic, "DEFAULT_NUM_FRAMES", 9)
+    runs = {}
+    for tag, device in (("cpu", "cpu"), ("gpu", cuda)):
+        opts = _eval_opts(tmp_path / tag)
+        if not runs:
+            model = spread_outputs_(build_depth_model(opts, device="cpu",
+                                                      seed=3), seed=3)
+            ckpt = save_checkpoint(str(tmp_path / "seeded.pt"), model, opts)
+        opts.load_weights_from_checkpoint = ckpt
+        before = cuda_cv.fused_sweep.launches
+        runs[tag] = eval_cli.main(opts, device=device)
+        assert cuda_cv.fused_sweep.launches - before == (
+            3 if tag == "gpu" else 0)
+    out = "hero_model/synthetic/default"
+    compare_cached_depths(str(tmp_path / "gpu" / out / "depths/scene"),
+                          str(tmp_path / "cpu" / out / "depths/scene"))
+    (gpu_frames, gpu_scenes), (cpu_frames, cpu_scenes) = (runs["gpu"],
+                                                          runs["cpu"])
+    for got, want in zip(
+            gpu_frames.elem_metrics + [gpu_scenes.final_metrics],
+            cpu_frames.elem_metrics + [cpu_scenes.final_metrics]):
+        compare_metrics(got, want, 64 * 96 * 0.5)
+    compare_meshes(str(tmp_path / "gpu" / out / "meshes/4cm_3.0m/scene.ply"),
+                   str(tmp_path / "cpu" / out / "meshes/4cm_3.0m/scene.ply"))
+
+
+def test_our_fuser_on_the_card_matches_the_cpu(cuda):
+    """The GT depths of 12 synthetic frames at 64x96 through `OurFuser` on
+    the card and on the CPU: values and weights differ in at most 1e-3 of
+    the voxels (the projection's float32 products, summed by cuBLAS on
+    the card, can move a voxel's nearest pixel by one), and the meshes'
+    counts within 1%."""
+    from simplerecon_tpu_torch.fusion.fusers import OurFuser
+    from simplerecon_tpu_torch.testing import (synthetic_gt_bounds,
+                                               synthetic_gt_frames)
+    frames = synthetic_gt_frames(12, 64, 96)
+    fusers = {}
+    for device in ("cpu", cuda):
+        fuser = OurFuser(fusion_resolution=0.04, max_fusion_depth=3.0,
+                         bounds_3x2=synthetic_gt_bounds(12, 64, 96),
+                         device=device)
+        for f in frames:
+            fuser.fuse_frames(f["depth_b1hw"][None], f["K"][None],
+                              f["cam_T_world"][None])
+        fusers[str(device)] = fuser
+    cpu, gpu = fusers["cpu"].fuser.tsdf, fusers[str(cuda)].fuser.tsdf
+    for got, want in ((gpu.values, cpu.values), (gpu.weights, cpu.weights)):
+        got, want = got.float().cpu().numpy(), want.float().numpy()
+        assert (got != want).mean() <= 1e-3
+    got_v, got_f = fusers[str(cuda)].get_mesh()
+    want_v, want_f = fusers["cpu"].get_mesh()
+    assert len(want_f) > 100
+    assert abs(len(got_f) - len(want_f)) <= 0.01 * len(want_f)
+
+
+def test_training_steps_repeat_their_bits(cuda):
+    """Two hero b2 bf16 forward-and-backward passes from one state, as the
+    training step runs them: every gradient the same bits."""
+    from simplerecon_tpu_torch.models.depth_model import build_depth_model
+    from simplerecon_tpu_torch.parallel import train
+    from simplerecon_tpu_torch.testing import hero_options, train_batch
+    opts = hero_options()
+    model = build_depth_model(opts, device=cuda, seed=0).train()
+    batch = train.batch_to_device(train_batch(opts, 2, seed=7), cuda)
+    grads = []
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        train.loss_and_backward(model, batch, flip=False)
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()
+                      if p.grad is not None})
+    assert len(grads[0]) == len(list(model.parameters()))
+    differ = [n for n, g in grads[0].items() if not torch.equal(g,
+                                                                grads[1][n])]
+    assert not differ, differ

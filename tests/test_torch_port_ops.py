@@ -289,3 +289,41 @@ def test_kernel_library_name_follows_the_sources(tmp_path, monkeypatch):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(FileNotFoundError, match="nvcc"):
         _build.find_nvcc()
+
+
+@pytest.mark.parametrize("mode, pads", [("reflect", (1, 2, 1, 2)),
+                                        ("replicate", (1, 1, 1, 1)),
+                                        ("replicate", (2, 0, 3, 1))],
+                         ids=["reflect", "replicate", "replicate_uneven"])
+def test_fixed_order_pad_matches_f_pad(mode, pads):
+    """`pad_edges` gives F.pad's values bit for bit, and its backward
+    F.pad's to float64 rounding (another order of the same sums)."""
+    from simplerecon_tpu_torch.ops.image import pad_edges
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 3, 6, 7))
+    x.requires_grad_(True)
+    want = torch.nn.functional.pad(x, pads, mode=mode)
+    got = pad_edges(x, pads, mode)
+    assert torch.equal(got, want)
+    g = torch.from_numpy(np.random.RandomState(1).randn(*want.shape))
+    np.testing.assert_allclose(torch.autograd.grad(got, x, g)[0].numpy(),
+                               torch.autograd.grad(want, x, g)[0].numpy(),
+                               rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 5, 7), (1, 2, 1, 1)],
+                         ids=["odd", "one_pixel"])
+def test_fixed_order_upsample_backward_matches_interpolate(shape):
+    """`upsample2x` is F.interpolate's bilinear x2 forward, bit for bit,
+    with its transpose as two fixed stencils: within float64 rounding of
+    F.interpolate's backward."""
+    x = torch.from_numpy(np.random.RandomState(2).randn(*shape))
+    x.requires_grad_(True)
+    want = torch.nn.functional.interpolate(x, scale_factor=2,
+                                           mode="bilinear",
+                                           align_corners=False)
+    got = tsampling.upsample2x(x)
+    assert torch.equal(got, want)
+    g = torch.from_numpy(np.random.RandomState(3).randn(*want.shape))
+    np.testing.assert_allclose(torch.autograd.grad(got, x, g)[0].numpy(),
+                               torch.autograd.grad(want, x, g)[0].numpy(),
+                               rtol=0, atol=1e-12)
