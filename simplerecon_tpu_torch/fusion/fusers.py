@@ -104,9 +104,10 @@ class DepthFuser:
 
 
 class OurFuser(DepthFuser):
-    """The paper's TSDF fuser: a dense bf16 grid on `device`, bounded by
-    the GT mesh when there is one, else by the given bounds, else by the
-    trajectory, else by a +-10 m box."""
+    """The paper's TSDF fuser: a dense bf16 grid on `device` (the card
+    unless the caller asks for the CPU), bounded by the GT mesh when there
+    is one, else by the given bounds, else by the trajectory, else by a
+    +-10 m box."""
 
     def __init__(self, gt_path: str = "",
                  fusion_resolution: float = 0.04,
@@ -114,7 +115,7 @@ class OurFuser(DepthFuser):
                  fuse_color: bool = False,
                  bounds_3x2: Optional[np.ndarray] = None,
                  trajectory_world_T_cam: Optional[np.ndarray] = None,
-                 device="cpu"):
+                 device=None):
         super().__init__(gt_path, fusion_resolution, max_fusion_depth,
                          fuse_color)
         kw = dict(with_color=fuse_color, device=device)
@@ -175,8 +176,9 @@ class OurFuser(DepthFuser):
 def get_fuser(opts, scan_gt_path: str = "",
               bounds_3x2: Optional[np.ndarray] = None,
               trajectory_world_T_cam: Optional[np.ndarray] = None,
-              device="cpu") -> DepthFuser:
-    """The fuser that `opts.depth_fuser` names, on `device`."""
+              device=None) -> DepthFuser:
+    """The fuser that `opts.depth_fuser` names, on `device` (the card
+    unless the caller asks for the CPU)."""
     if opts.depth_fuser in ("ours", "open3d"):
         return OurFuser(
             gt_path=scan_gt_path,

@@ -24,6 +24,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from simplerecon_tpu_torch.models.depth_model import resolve_device
+
 VOX_MOD = 8
 # voxels per colour update: its float32 (N, 3) temporaries, a few at a
 # time, stay under a GiB
@@ -50,8 +52,10 @@ class TSDF:
     @classmethod
     def from_bounds(cls, bounds_3x2, voxel_size: float,
                     store_dtype=torch.bfloat16, with_color: bool = False,
-                    device="cpu") -> "TSDF":
-        """`bounds_3x2[i] = (min_i, max_i)` in meters."""
+                    device=None) -> "TSDF":
+        """`bounds_3x2[i] = (min_i, max_i)` in meters; on `device`, the
+        card unless the caller asks for the CPU (`resolve_device`)."""
+        device = resolve_device(device)
         bounds = np.asarray(bounds_3x2, np.float64)
         extents = bounds[:, 1] - bounds[:, 0]
         dims = [_round_up(int(np.ceil(e / voxel_size))) for e in extents]

@@ -40,7 +40,7 @@ class BlurPool(nn.Module):
 
 class ReplicatePadConv2d(nn.Conv2d):
     """`nn.Conv2d(..., padding_mode="replicate")` whose pad is
-    `ops/image.py::pad_edges`: the same values, and a backward that sums
+    `ops/image.py::pad_edges`: F.pad's forward, and a backward that sums
     in a fixed order."""
 
     def _conv_forward(self, x, weight, bias):

@@ -34,31 +34,51 @@ def _gaussian_kernel_np(kernel_size: int, sigma: float) -> np.ndarray:
     return np.outer(g, g).astype(np.float32)
 
 
-def _pad_dim(x: torch.Tensor, dim: int, before: int, after: int,
-             mode: str) -> torch.Tensor:
-    n = x.shape[dim]
-    if mode == "reflect":
-        lo = x.narrow(dim, 1, before).flip(dim)
-        hi = x.narrow(dim, n - 1 - after, after).flip(dim)
-    elif mode == "replicate":
-        size = list(x.shape)
-        size[dim] = before
-        lo = x.narrow(dim, 0, 1).expand(size)
-        size[dim] = after
-        hi = x.narrow(dim, n - 1, 1).expand(size)
-    else:
-        raise ValueError(f"unknown pad mode {mode!r}")
-    return torch.cat([lo, x, hi], dim)
+def _unpad_dim(g: torch.Tensor, dim: int, n: int, before: int,
+               after: int, mode: str) -> torch.Tensor:
+    """The transpose of padding `dim` from `n` to `before + n + after`:
+    each border element's gradient added to the element it copies, in a
+    fixed order."""
+    out = g.narrow(dim, before, n).clone()
+    lo, hi = g.narrow(dim, 0, before), g.narrow(dim, before + n, after)
+    if mode == "reflect":   # border element j copies x[before - j], x[n-2-j]
+        out.narrow(dim, 1, before).add_(lo.flip(dim))
+        out.narrow(dim, n - 1 - after, after).add_(hi.flip(dim))
+    else:                   # replicate: every border element copies an edge
+        out.narrow(dim, 0, 1).add_(lo.sum(dim, keepdim=True))
+        out.narrow(dim, n - 1, 1).add_(hi.sum(dim, keepdim=True))
+    return out
+
+
+class _PadEdges(torch.autograd.Function):
+    """F.pad's forward, with a backward that sums in a fixed order: on the
+    card F.pad's backward adds the border's copies with atomics, in no
+    fixed order."""
+
+    @staticmethod
+    def forward(ctx, x_bchw, pads, mode):
+        ctx.pads, ctx.mode = pads, mode
+        ctx.dtype, ctx.hw = x_bchw.dtype, x_bchw.shape[-2:]
+        return F.pad(x_bchw, pads, mode=mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        left, right, top, bottom = ctx.pads
+        g = g.to(torch.promote_types(g.dtype, torch.float32))
+        g = _unpad_dim(g, g.dim() - 1, ctx.hw[1], left, right, ctx.mode)
+        g = _unpad_dim(g, g.dim() - 2, ctx.hw[0], top, bottom, ctx.mode)
+        return g.to(ctx.dtype), None, None
 
 
 def pad_edges(x_bchw: torch.Tensor, pads, mode: str) -> torch.Tensor:
     """`F.pad(x, (left, right, top, bottom), mode)` for "reflect" and
-    "replicate", as copies of slices: the same values, and a backward
-    that sums each element's copies in a fixed order (F.pad's backward on
-    the card adds the border's copies with atomics, in no fixed order)."""
-    left, right, top, bottom = pads
-    x = _pad_dim(x_bchw, x_bchw.dim() - 1, left, right, mode)
-    return _pad_dim(x, x_bchw.dim() - 2, top, bottom, mode)
+    "replicate", whose backward sums each element's copies in a fixed
+    order (`_PadEdges`); F.pad itself where no gradient is taken."""
+    if mode not in ("reflect", "replicate"):
+        raise ValueError(f"unknown pad mode {mode!r}")
+    if torch.is_grad_enabled() and x_bchw.requires_grad:
+        return _PadEdges.apply(x_bchw, tuple(pads), mode)
+    return F.pad(x_bchw, tuple(pads), mode=mode)
 
 
 def _pad(x_bhwc: torch.Tensor, pad: int, mode: str) -> torch.Tensor:

@@ -96,5 +96,9 @@ class _Upsample2x(torch.autograd.Function):
 
 def upsample2x(x_bchw: torch.Tensor) -> torch.Tensor:
     """Bilinear x2 upsample, align_corners=False: the decoder's
-    upsampler. NCHW."""
-    return _Upsample2x.apply(x_bchw)
+    upsampler. NCHW. Its backward sums in a fixed order (`_Upsample2x`);
+    F.interpolate itself where no gradient is taken."""
+    if torch.is_grad_enabled() and x_bchw.requires_grad:
+        return _Upsample2x.apply(x_bchw)
+    return F.interpolate(x_bchw, scale_factor=2, mode="bilinear",
+                         align_corners=False)

@@ -181,53 +181,32 @@ _NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
 _INT = re.compile(r"^(?:[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?(?:0|[1-9][0-9_]*)"
                   r"|[-+]?0x[0-9a-fA-F_]+|[-+]?[1-9][0-9_]*(?::[0-5]?[0-9])+)$")
 _FLOAT = re.compile(r"^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
-                    r"|\.[0-9_]+(?:[eE][-+][0-9]+)?"
+                    r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?"
                     r"|[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+\.[0-9_]*"
                     r"|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN))$")
 _TIMESTAMP = re.compile(r"^[0-9][0-9][0-9][0-9]-[0-9][0-9]?-[0-9][0-9]?")
-
-
-def _sexagesimal(text: str, cast):
-    value = 0
-    for part in text.split(":"):
-        value = value * 60 + cast(part)
-    return value
+# the forms of `_INT` and `_FLOAT` (subsets of them) that the reader
+# converts: plain decimals, as the configs write them
+_DECIMAL_INT = re.compile(r"^[-+]?(?:0|[1-9][0-9]*)$")
+_DECIMAL_FLOAT = re.compile(r"^(?:[-+]?[0-9]+\.[0-9]*|\.[0-9]+)"
+                            r"(?:[eE][-+][0-9]+)?$")
 
 
 def _plain_scalar(text: str):
-    """A plain (unquoted) scalar, typed as YAML 1.1 resolves it."""
+    """A plain (unquoted) scalar, typed as YAML 1.1 resolves it. A number
+    in another form than a plain decimal (base 2, 8 or 16, `_`
+    separators, sexagesimal, .inf, .nan) and a timestamp raise."""
     if _NULL.match(text):
         return None
     if _BOOL.match(text):
         return text.lower() in ("yes", "true", "on")
-    if _INT.match(text):
-        v = text.replace("_", "")
-        sign = -1 if v[0] == "-" else 1
-        v = v.lstrip("+-")
-        if v == "0":
-            return 0
-        if v.startswith("0b"):
-            return sign * int(v[2:], 2)
-        if v.startswith("0x"):
-            return sign * int(v[2:], 16)
-        if v.startswith("0"):
-            return sign * int(v, 8)
-        if ":" in v:
-            return sign * _sexagesimal(v, int)
-        return sign * int(v)
-    if _FLOAT.match(text):
-        v = text.replace("_", "").lower()
-        sign = -1.0 if v[0] == "-" else 1.0
-        v = v.lstrip("+-")
-        if v == ".inf":
-            return sign * math.inf
-        if v == ".nan":
-            return math.nan
-        if ":" in v:
-            return sign * _sexagesimal(v, float)
-        return sign * float(v)
-    if _TIMESTAMP.match(text):
-        raise ValueError(f"YAML timestamps are not read: {text!r}")
+    if _DECIMAL_INT.match(text):
+        return int(text)
+    if _DECIMAL_FLOAT.match(text):
+        return float(text)
+    if _INT.match(text) or _FLOAT.match(text) or _TIMESTAMP.match(text):
+        raise ValueError(f"YAML 1.1 reads {text!r} as a number or date in "
+                         "a form this reader does not convert")
     return text
 
 
@@ -355,10 +334,8 @@ def _yaml_value(value) -> str:
     if isinstance(value, int):
         return str(value)
     if isinstance(value, float):
-        if math.isnan(value):
-            return ".nan"
-        if math.isinf(value):
-            return ".inf" if value > 0 else "-.inf"
+        if not math.isfinite(value):
+            raise ValueError(f"the reader does not read {value!r} back")
         text = repr(value)
         mantissa, _, exponent = text.partition("e")
         if "." not in mantissa:     # YAML 1.1 floats need a dot

@@ -405,25 +405,45 @@ GT_FUSION = dict(dims=(136, 96, 176), vertices=9669, faces=18885,
 # metrics to `metric_rtol`; the inlier percentages within `a_pixels`
 # pixels' worth of a frame's valid pixels (a depth within rounding of a
 # threshold lands on either side); the meshes' vertex and face counts
-# within `mesh_count_rtol` of the larger, or `mesh_count_atol` (a voxel
-# whose value changes sign remakes the triangles of its 8 cubes), and
-# F1 >= `mesh_f1` between the two at one voxel (4 cm)
+# within `mesh_count_rtol` of the reference's (a voxel whose value
+# changes sign remakes the triangles of its 8 cubes), and F1 >= `mesh_f1`
+# between the two at one voxel (4 cm), from `mesh_samples_per_face`
+# points a face of the reference (at 20,000 points in all a 65k-face
+# mesh scored 0.945 against itself: the check measured the sampling).
+# The card against the CPU only: the lowest-cost depth, an argmax over
+# the planes, may sit on another plane in `card_plane_flips` of its
+# pixels (where two planes, neighbours or not, score within float32
+# rounding of each other, the scores summed in another order order them
+# either way; on an NVIDIA H100 against the CPU, 1 pixel of a
+# 3,072-pixel frame sat one plane away, in another run one 14 planes
+# away, while the s0 depths agreed to rtol 1e-4).
 EVAL_TOL = dict(depth_rtol=1e-4, depth_atol=1e-5, metric_rtol=1e-4,
-                a_pixels=2, mesh_count_rtol=0.01, mesh_count_atol=16,
-                mesh_f1=0.99)
+                a_pixels=2, mesh_count_rtol=0.01, mesh_f1=0.99,
+                mesh_samples_per_face=10, card_plane_flips=1e-3)
 CONTINUOUS_METRICS = ("abs_diff", "abs_rel", "sq_rel", "rmse", "rmse_log")
 RATIO_METRICS = ("a5", "a10", "a25", "a0", "a1", "a2", "a3")
 
 
-def compare_cached_depths(got_dir: str, want_dir: str) -> dict:
+def plane_ratio(opts) -> float:
+    """The depth ratio of two neighbouring planes of the log-spaced
+    sweep."""
+    return (opts.max_matching_depth / opts.min_matching_depth) ** (
+        1.0 / (opts.matching_num_depth_bins - 1))
+
+
+def compare_cached_depths(got_dir: str, want_dir: str,
+                          flip_ratio: float = 0.0) -> dict:
     """Asserts the `--cache_depths` pickles of two runs agree within
-    `EVAL_TOL` (intrinsics, poses and frame ids exactly); returns the
-    number of frames and the largest relative depth difference."""
+    `EVAL_TOL` (intrinsics, poses and frame ids exactly). With
+    `flip_ratio`, the neighbouring planes' depth ratio (`plane_ratio`),
+    up to `card_plane_flips` of the lowest-cost pixels may instead lie
+    on another plane. Returns the number of frames, the largest relative
+    depth difference and the number of such pixels."""
     import glob
     import os
     import pickle
     paths = sorted(glob.glob(os.path.join(want_dir, "*.pickle")))
-    worst = 0.0
+    worst, flips, cost_pixels = 0.0, 0, 0
     for path in paths:
         with open(path, "rb") as f:
             want = pickle.load(f)
@@ -434,14 +454,26 @@ def compare_cached_depths(got_dir: str, want_dir: str) -> dict:
         for key in ("K_full_depth_b44", "K_s0_b44", "world_T_cam_b44",
                     "cam_T_world_b44"):
             np.testing.assert_array_equal(got[key], want[key], key)
-        for key in ("depth_pred_s0_b1hw", "lowest_cost_bhw"):
-            assert got[key].shape == want[key].shape, key
-            np.testing.assert_allclose(
-                got[key], want[key], rtol=EVAL_TOL["depth_rtol"],
-                atol=EVAL_TOL["depth_atol"], err_msg=key)
-            worst = max(worst, float(np.max(np.abs(got[key] - want[key])
-                                            / np.abs(want[key]))))
-    return dict(frames=len(paths), depth_rel=worst)
+        gd, wd = got["depth_pred_s0_b1hw"], want["depth_pred_s0_b1hw"]
+        assert gd.shape == wd.shape
+        np.testing.assert_allclose(gd, wd, rtol=EVAL_TOL["depth_rtol"],
+                                   atol=EVAL_TOL["depth_atol"])
+        g, w = got["lowest_cost_bhw"], want["lowest_cost_bhw"]
+        assert g.shape == w.shape
+        off = ~np.isclose(g, w, rtol=EVAL_TOL["depth_rtol"],
+                          atol=EVAL_TOL["depth_atol"])
+        if flip_ratio:      # a whole number of planes up or down
+            planes = np.log(np.maximum(g[off], w[off])
+                            / np.minimum(g[off], w[off])) / np.log(flip_ratio)
+            np.testing.assert_allclose(planes, np.round(planes), atol=1e-3)
+        flips += int(off.sum())
+        cost_pixels += off.size
+        worst = max(worst, float(np.max(np.abs(gd - wd) / np.abs(wd))),
+                    float(np.max(np.abs(g - w)[~off] / np.abs(w)[~off],
+                                 initial=0.0)))
+    assert flips <= (EVAL_TOL["card_plane_flips"] * cost_pixels
+                     if flip_ratio else 0), (flips, cost_pixels)
+    return dict(frames=len(paths), depth_rel=worst, plane_flips=flips)
 
 
 def compare_metrics(got: dict, want: dict, valid_pixels: float) -> dict:
@@ -467,12 +499,13 @@ def compare_meshes(got_ply: str, want_ply: str) -> dict:
     got_v, got_f = read_ply(got_ply)
     want_v, want_f = read_ply(want_ply)
     assert len(want_f) > 0, want_ply
-    scores = evaluate_mesh(got_v, got_f, want_v, want_f, num_points=20_000,
-                           threshold=0.04)
+    scores = evaluate_mesh(
+        got_v, got_f, want_v, want_f, threshold=0.04,
+        num_points=EVAL_TOL["mesh_samples_per_face"] * len(want_f))
     measured = dict(vertices=(len(got_v), len(want_v)),
                     faces=(len(got_f), len(want_f)), f1=scores["f1"])
     for got, want in (measured["vertices"], measured["faces"]):
-        assert abs(got - want) <= max(EVAL_TOL["mesh_count_rtol"] * want,
-                                      EVAL_TOL["mesh_count_atol"]), measured
+        assert abs(got - want) <= EVAL_TOL["mesh_count_rtol"] * want, (
+            measured)
     assert scores["f1"] >= EVAL_TOL["mesh_f1"], measured
     return measured

@@ -47,7 +47,7 @@ from simplerecon_tpu_torch.models.depth_model import build_depth_model
 from simplerecon_tpu_torch.options import OptionsHandler
 from simplerecon_tpu_torch.testing import (compare_cached_depths,
                                            compare_meshes, compare_metrics,
-                                           spread_outputs_)
+                                           plane_ratio, spread_outputs_)
 from simplerecon_tpu_torch.utils.checkpoint import save_checkpoint
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -121,6 +121,43 @@ def test_frame_and_scene_metrics_match(runs):
         compare_metrics(got, want, valid)
     assert np.isfinite(port_frames.final_metrics["abs_rel"])
     assert port_frames.run_stats["frames"] == 6
+
+
+@pytest.mark.parametrize("planes_moved, flips_allowed",
+                         [(1, False), (1, True), (5, True), (0.5, True)],
+                         ids=["strict", "one_plane", "five_planes",
+                              "between_planes"])
+def test_cached_depth_plane_flips(tmp_path, planes_moved, flips_allowed):
+    """`compare_cached_depths` takes a lowest-cost pixel on another plane
+    only when asked to (the card against the CPU), and never a depth
+    between planes."""
+    import pickle
+    opts = OptionsHandler().parse_and_merge_options(
+        cl_args_list=cl_args(str(tmp_path)))
+    ratio = plane_ratio(opts)
+    n = opts.matching_num_depth_bins
+    planes = opts.min_matching_depth * ratio ** np.arange(n)
+    np.testing.assert_allclose(planes[-1], opts.max_matching_depth)
+    rng = np.random.RandomState(0)
+    want = dict(frame_id="scene_0", K_full_depth_b44=np.eye(4)[None],
+                K_s0_b44=np.eye(4)[None], world_T_cam_b44=np.eye(4)[None],
+                cam_T_world_b44=np.eye(4)[None],
+                depth_pred_s0_b1hw=rng.uniform(0.5, 4.0, (1, 1, 48, 64)),
+                lowest_cost_bhw=planes[rng.randint(0, n - 5, (1, 48, 64))])
+    got = dict(want, lowest_cost_bhw=want["lowest_cost_bhw"].copy())
+    got["lowest_cost_bhw"][0, 5, 7] *= ratio ** planes_moved
+    for name, item in (("got", got), ("want", want)):
+        os.makedirs(tmp_path / name)
+        with open(tmp_path / name / "scene_0.pickle", "wb") as f:
+            pickle.dump(item, f)
+    check = lambda: compare_cached_depths(  # noqa: E731
+        str(tmp_path / "got"), str(tmp_path / "want"),
+        flip_ratio=ratio if flips_allowed else 0.0)
+    if flips_allowed and planes_moved >= 1:
+        assert check()["plane_flips"] == 1
+    else:
+        with pytest.raises(AssertionError):
+            check()
 
 
 def test_meshes_match(runs):

@@ -26,6 +26,7 @@ package's, on the CPU.
 """
 
 import json
+import types
 
 import jax
 import jax.numpy as jnp
@@ -162,7 +163,8 @@ def test_our_fuser_matches_jax(color, tmp_path):
                                        image_hw=(32, 48)), rtol=1e-6)
     kw = dict(fusion_resolution=0.04, max_fusion_depth=3.0,
               bounds_3x2=bounds, fuse_color=color)
-    ref, port = jfusers.OurFuser(**kw), tfusers.OurFuser(**kw)
+    ref = jfusers.OurFuser(**kw)
+    port = tfusers.OurFuser(**kw, device="cpu")
     depth = np.stack([f["depth_b1hw"] for f in frames])
     depth[3, :, ::7, ::5] = np.nan      # holes in observed voxels
     K = np.stack([f["K"] for f in frames])
@@ -190,6 +192,23 @@ def test_our_fuser_matches_jax(color, tmp_path):
     assert open(paths[0], "rb").read() == open(paths[1], "rb").read()
 
 
+def test_fuser_asks_for_the_card_by_default():
+    """Without `device` the fuser's grid goes to the card; with no card
+    it raises rather than fuse on the CPU."""
+    opts = types.SimpleNamespace(depth_fuser="ours", fusion_resolution=0.04,
+                                 fusion_max_depth=3.0, fuse_color=False)
+    bounds = np.array([[0.0, 1.0]] * 3)
+    for make in (lambda: tfusers.get_fuser(opts, bounds_3x2=bounds),
+                 lambda: tfusers.OurFuser(bounds_3x2=bounds)):
+        if torch.cuda.is_available():
+            assert make().fuser.tsdf.values.device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()
+    assert tfusers.get_fuser(opts, bounds_3x2=bounds, device="cpu"
+                             ).fuser.tsdf.values.device.type == "cpu"
+
+
 @pytest.mark.parametrize("shape", [(24, 40), (80, 120)],
                          ids=["shrink", "grow"])
 def test_colour_resize_matches_jax_image_resize(shape):
@@ -205,9 +224,10 @@ def test_full_width_gt_fusion_reference():
     bounds = synthetic_gt_bounds()
     room_v, room_f, _ = make_room_mesh()
     results = {}
-    for name, pkg in (("jax", jfusers), ("port", tfusers)):
+    for name, pkg, kw in (("jax", jfusers, {}),
+                          ("port", tfusers, dict(device="cpu"))):
         fuser = pkg.OurFuser(fusion_resolution=0.04, max_fusion_depth=3.0,
-                             bounds_3x2=bounds)
+                             bounds_3x2=bounds, **kw)
         for f in frames:
             fuser.fuse_frames(f["depth_b1hw"][None], f["K"][None],
                               f["cam_T_world"][None])

@@ -498,13 +498,14 @@ def _eval_opts(out, *extra):
         "--output_base_path", str(out), "--image_height", "64",
         "--image_width", "96", "--num_images_in_tuple", "4",
         "--model_num_views", "4", "--matching_num_depth_bins", "8",
-        "--precision", "32", "--batch_size", "2", "--num_workers", "2",
+        "--precision", "32", "--batch_size", "16", "--num_workers", "2",
         *extra])
 
 
-def test_eval_cli_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
+def test_eval_cli_on_the_card_matches_the_cpu(cuda, tmp_path):
     """The eval CLI at 64x96 float32 on the card and on the CPU, the same
-    seeded weights: cached depths, metrics and meshes within
+    seeded weights, over the whole 48-frame scene (45 tuples in batches
+    of 16, 16, 13): cached depths, metrics and meshes within
     `testing.EVAL_TOL`; K1 launched once a batch."""
     from simplerecon_tpu_torch.data import synthetic
     from simplerecon_tpu_torch.models.depth_model import build_depth_model
@@ -512,9 +513,9 @@ def test_eval_cli_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
     from simplerecon_tpu_torch.testing import (compare_cached_depths,
                                                compare_meshes,
                                                compare_metrics,
-                                               spread_outputs_)
+                                               plane_ratio, spread_outputs_)
     from simplerecon_tpu_torch.utils.checkpoint import save_checkpoint
-    monkeypatch.setattr(synthetic, "DEFAULT_NUM_FRAMES", 9)
+    assert synthetic.DEFAULT_NUM_FRAMES == 48
     runs = {}
     for tag, device in (("cpu", "cpu"), ("gpu", cuda)):
         opts = _eval_opts(tmp_path / tag)
@@ -525,11 +526,13 @@ def test_eval_cli_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
         opts.load_weights_from_checkpoint = ckpt
         before = cuda_cv.fused_sweep.launches
         runs[tag] = eval_cli.main(opts, device=device)
+        assert len(runs[tag][0].elem_metrics) == 45
         assert cuda_cv.fused_sweep.launches - before == (
             3 if tag == "gpu" else 0)
     out = "hero_model/synthetic/default"
     compare_cached_depths(str(tmp_path / "gpu" / out / "depths/scene"),
-                          str(tmp_path / "cpu" / out / "depths/scene"))
+                          str(tmp_path / "cpu" / out / "depths/scene"),
+                          flip_ratio=plane_ratio(opts))
     (gpu_frames, gpu_scenes), (cpu_frames, cpu_scenes) = (runs["gpu"],
                                                           runs["cpu"])
     for got, want in zip(

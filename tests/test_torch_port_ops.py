@@ -291,15 +291,16 @@ def test_kernel_library_name_follows_the_sources(tmp_path, monkeypatch):
         _build.find_nvcc()
 
 
-@pytest.mark.parametrize("mode, pads", [("reflect", (1, 2, 1, 2)),
-                                        ("replicate", (1, 1, 1, 1)),
-                                        ("replicate", (2, 0, 3, 1))],
-                         ids=["reflect", "replicate", "replicate_uneven"])
-def test_fixed_order_pad_matches_f_pad(mode, pads):
+@pytest.mark.parametrize("mode, pads, hw", [
+    ("reflect", (1, 2, 1, 2), (6, 7)), ("reflect", (1, 2, 2, 1), (4, 3)),
+    ("replicate", (1, 1, 1, 1), (6, 7)), ("replicate", (2, 0, 3, 1), (6, 7))],
+    ids=["reflect", "reflect_small", "replicate", "replicate_uneven"])
+def test_fixed_order_pad_matches_f_pad(mode, pads, hw):
     """`pad_edges` gives F.pad's values bit for bit, and its backward
-    F.pad's to float64 rounding (another order of the same sums)."""
+    F.pad's to float64 rounding (another order of the same sums); on a
+    map whose two borders copy the same elements too."""
     from simplerecon_tpu_torch.ops.image import pad_edges
-    x = torch.from_numpy(np.random.RandomState(0).randn(2, 3, 6, 7))
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 3, *hw))
     x.requires_grad_(True)
     want = torch.nn.functional.pad(x, pads, mode=mode)
     got = pad_edges(x, pads, mode)

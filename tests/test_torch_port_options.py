@@ -3,7 +3,8 @@ package's, on the CPU.
 
 - Every YAML under `configs/` parses to the same mapping as the JAX
   package's `load_options_yaml` (PyYAML's `safe_load`), value and type.
-- The YAML 1.1 scalar rules on a document of edge cases, against PyYAML.
+- The YAML 1.1 scalar rules on a document of edge cases, against PyYAML;
+  numbers and dates in the forms it does not convert raise.
 - `OptionsHandler.parse_and_merge_options` gives the JAX handler's
   `to_dict()` for two-file layering, a `store_true` flag, `--lr_steps`,
   `--gpus` and an `Optional[int]`.
@@ -61,12 +62,11 @@ flow: [1, 2.5, 'x, y', "q"]
 block:
 - 70000
 - 80000
-hex: 0x1F
-octal: 017
-underscored: 1_000
 negative: -3
-inf: .inf
-sexagesimal: 1:30
+float_signed: +2.
+float_lead_dot: .5
+str_signed_lead_dot: -.5
+str_dot_underscore: ._5
 escaped: 'it''s'
 double_quoted: "a: b # c"
 """
@@ -77,6 +77,17 @@ def test_scalar_rules_follow_pyyaml():
     want = yaml.safe_load(EDGE_CASES.replace(
         "!!python/object:options.Options\n", ""))
     assert_same_typed(got, want)
+
+
+@pytest.mark.parametrize("value", ["0x1F", "017", "0b101", "1_000", "1.5_0",
+                                   "1:30", "1:30.5", ".inf", "-.Inf", ".nan",
+                                   "2026-10-17"])
+def test_other_yaml11_numbers_raise(value):
+    """Numbers and dates that YAML 1.1 reads in forms no config uses
+    raise, where the reader would otherwise keep them as strings."""
+    assert not isinstance(yaml.safe_load(f"k: {value}")["k"], str)
+    with pytest.raises(ValueError, match="does not convert"):
+        toptions.parse_options_yaml(f"k: {value}")
 
 
 HERO = os.path.join(REPO, "configs", "models", "hero_model.yaml")
