@@ -110,9 +110,30 @@ non-zero, and only a run that passes them all prints the last line:
    (`testing.GT_FUSION`), with the TSDF's ms per frame;
 19. the eval CLI on the card against the CPU in float32 at 192x256 (hero
    widths, 9 frames, seeded weights through a checkpoint): cached
-   depths, metrics and meshes within `testing.EVAL_TOL`.
-Phases 7 and 12 end with two forward-and-backward passes from one state
-whose gradients must be the same bits.
+   depths, metrics and meshes within `testing.EVAL_TOL`;
+20. the training CLI (`scripts/train.py`) as a user runs it: the hero
+   YAML (bf16, b16, 384x512, 8 views, 64 planes, `xla_fused`) on the
+   synthetic scene, 12 steps, a log every 4 and a validation every 6
+   over 1 batch: K1, K2 and the scatter once a step and K1 once a
+   validation batch, no other kernel and no plain sweep; finite losses,
+   the JSON-lines records with the JAX CLI's keys, panel PNGs that
+   parse, rotation keeping `step_6` and `step_12`, `best/`; steps per
+   second, the median step against phase 7's bare step, the loader
+   wait, the ms of a checkpoint write and of a validation, peak memory;
+21. resume and finetune: `step_6` restored into a fresh state gives the
+   saved parameters, buffers, AdamW moments, counters and generator bit
+   for bit; a run resumed from it goes on at step 7 and writes
+   `step_12`; `--load_weights_from_checkpoint` loads its weights with a
+   fresh optimizer;
+22. the grand loop, short (`scripts/grand_loop.py --steps 100`, its own
+   64x96, 4 views, 32 planes, b4): training, the eval CLI with fusion
+   and the mesh's score chain together; finite summary numbers, a PLY;
+23. the hero model with `matching_norm="group"`: one b16 bf16 step runs
+   K1, K2 and the scatter once each, then two passes from one state
+   give the same gradient bits.
+Phases 7, 12 and 23 end with two forward-and-backward passes from one
+state whose gradients must be the same bits. The run prints its total
+time.
 
 The line before the last is the kernel report as JSON (the seven
 kernels that replace the TPU kernels, the scatter that sums K2's d_src
@@ -126,6 +147,7 @@ import contextlib
 import copy
 import hashlib
 import json
+import os
 import re
 import shutil
 import statistics
@@ -158,8 +180,11 @@ from simplerecon_tpu_torch.fusion.mesh import read_ply  # noqa: E402
 from simplerecon_tpu_torch.options import OptionsHandler  # noqa: E402
 from simplerecon_tpu_torch.scripts import determinism  # noqa: E402
 from simplerecon_tpu_torch.scripts import test as eval_cli  # noqa: E402
+from simplerecon_tpu_torch.scripts import grand_loop  # noqa: E402
+from simplerecon_tpu_torch.scripts import train as train_cli  # noqa: E402
+from simplerecon_tpu_torch.utils import checkpoint as ckpt_lib  # noqa: E402
 from simplerecon_tpu_torch.utils.checkpoint import \
-    save_checkpoint  # noqa: E402
+    save_weights  # noqa: E402
 from simplerecon_tpu_torch.utils.mesh_metrics import \
     evaluate_mesh  # noqa: E402
 from simplerecon_tpu_torch.testing import (  # noqa: E402
@@ -1643,7 +1668,7 @@ def phase_eval_card_vs_cpu(device):
         if not runs:
             model = spread_outputs_(
                 build_depth_model(opts, device="cpu", seed=3), seed=3)
-            ckpt = save_checkpoint(f"{root}/seeded.pt", model, opts)
+            ckpt = save_weights(f"{root}/seeded.pt", model, opts)
         opts.load_weights_from_checkpoint = ckpt
         t0 = time.perf_counter()
         runs[tag] = (opts, eval_cli.main(opts, device=dev))
@@ -1675,6 +1700,268 @@ def phase_eval_card_vs_cpu(device):
           f"continuous {worst['metric_rel']:.2e} relative, percentages "
           f"{worst['a_pixels']:.2f} pixels; meshes {mesh['vertices']} "
           f"vertices, {mesh['faces']} faces, F1 at 4 cm {mesh['f1']:.4f}")
+
+
+TRAIN_CLI_OUT = "build/train_cli"
+CLI_STEPS, CLI_LOG_INTERVAL, CLI_VAL_INTERVAL = 12, 4, 6
+GRAND_LOOP_STEPS = 100
+# the JSON-lines keys of the JAX training CLI: its loss dictionary, the
+# gradient norm, steps per second and learning rate after "train/"
+LOSS_KEYS = ("loss", "si_loss", "grad_loss", "abs_loss", "normals_loss",
+             "ms_loss", "inv_abs_loss", "log_l1_loss", "mv_loss")
+TRAIN_ROW_KEYS = {"step"} | {f"train/{k}" for k in LOSS_KEYS + (
+    "grad_norm", "steps_per_sec", "lr")}
+VAL_ROW_KEYS = {"step", "val/loss"}
+
+
+@contextlib.contextmanager
+def plain_sweeps():
+    """Counts the calls of the plain sweep (`fused_sweep_reference`, its
+    backward, or `sweep_warp` over more than one feature channel) while
+    the context is open; yields the one-element count."""
+    count = [0]
+    fwd, bwd = cuda_cv.fused_sweep_reference, \
+        cuda_cv.fused_sweep_backward_reference
+    warp = cv_ops.sweep_warp
+
+    def counted(fn, min_channels: int):
+        # the model warps one channel for the last plane's mask
+        def wrapped(*args, **kwargs):
+            count[0] += args[0].shape[-1] >= min_channels
+            return fn(*args, **kwargs)
+        return wrapped
+
+    cuda_cv.fused_sweep_reference = counted(fwd, 1)
+    cuda_cv.fused_sweep_backward_reference = counted(bwd, 1)
+    cv_ops.sweep_warp = counted(warp, 2)
+    try:
+        yield count
+    finally:
+        cuda_cv.fused_sweep_reference = fwd
+        cuda_cv.fused_sweep_backward_reference = bwd
+        cv_ops.sweep_warp = warp
+
+
+def check_png(path: str) -> tuple:
+    """Parses a PNG written by `utils/visualization.py`: the signature,
+    every chunk's CRC, IHDR, and the inflated rows' length. Returns
+    (height, width)."""
+    import struct
+    import zlib
+    with open(path, "rb") as f:
+        data = f.read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n", path
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        assert crc == zlib.crc32(kind + body) & 0xFFFFFFFF, (path, kind)
+        chunks[kind] = chunks.get(kind, b"") + body
+        pos += 12 + length
+    assert list(chunks)[-1] == b"IEND" and pos == len(data), path
+    w, h, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    channels = {0: 1, 2: 3, 6: 4}[color]
+    assert depth == 8 and len(zlib.decompress(chunks[b"IDAT"])) == h * (
+        1 + w * channels), path
+    return h, w
+
+
+def train_cli_options(out: str, *extra):
+    """The training CLI's options as a user gives them: the hero YAML, the
+    synthetic scene, CLI_STEPS steps with a log every CLI_LOG_INTERVAL
+    and a validation of one batch every CLI_VAL_INTERVAL; `extra` flags
+    after them."""
+    return OptionsHandler().parse_and_merge_options(cl_args_list=[
+        "--config_file", "configs/models/hero_model.yaml",
+        "--dataset", "synthetic", "--single_debug_scan_id", "scene",
+        "--max_steps", str(CLI_STEPS), "--log_interval",
+        str(CLI_LOG_INTERVAL), "--val_interval", str(CLI_VAL_INTERVAL),
+        "--val_batches", "1", "--log_dir", out, *extra])
+
+
+def read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def assert_hero_full_width(opts):
+    assert (opts.batch_size, opts.compute_dtype, opts.image_height,
+            opts.image_width, opts.model_num_views,
+            opts.matching_num_depth_bins, opts.cost_volume_backend) == (
+        16, "bfloat16", 384, 512, 8, 64, "xla_fused"), opts
+
+
+def run_train_cli(opts, device) -> tuple:
+    """`scripts/train.py::main(opts)` on `device` with the launch counters
+    set to 0 just before; no plain sweep may run. Returns (state,
+    launches, seconds)."""
+    torch.cuda.synchronize()
+    with plain_sweeps() as plain:
+        reset_launches()
+        t0 = time.perf_counter()
+        state = train_cli.main(opts, device=device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launches()
+    assert plain[0] == 0, f"{plain[0]} plain sweeps on the card"
+    return state, counts, seconds
+
+
+def phase_train_cli(device, bare_step_ms: float) -> dict:
+    """`scripts/train.py` as a user runs it at full width (the hero YAML:
+    bf16, b16, 384x512, 8 views, 64 planes, `xla_fused` -> K1, K2 and
+    the scatter), CLI_STEPS steps on the synthetic scene."""
+    shutil.rmtree(TRAIN_CLI_OUT, ignore_errors=True)
+    opts = train_cli_options(TRAIN_CLI_OUT)
+    assert_hero_full_width(opts)
+    state, counts, total = run_train_cli(opts, device)
+    vals = CLI_STEPS // CLI_VAL_INTERVAL
+    assert_launches(counts, {"K1": CLI_STEPS + vals, "K2": CLI_STEPS,
+                             "scatter": CLI_STEPS})
+    assert state.step == state.optimizer.count == CLI_STEPS, state.step
+    root = f"{TRAIN_CLI_OUT}/{opts.name}"
+    rows = read_jsonl(f"{root}/metrics.jsonl")
+    train_rows = [r for r in rows if "train/loss" in r]
+    val_rows = [r for r in rows if "val/loss" in r]
+    assert [r["step"] for r in train_rows] == list(range(
+        CLI_LOG_INTERVAL, CLI_STEPS + 1, CLI_LOG_INTERVAL)), rows
+    assert [r["step"] for r in val_rows] == list(range(
+        CLI_VAL_INTERVAL, CLI_STEPS + 1, CLI_VAL_INTERVAL)), rows
+    assert all(set(r) == TRAIN_ROW_KEYS for r in train_rows), train_rows
+    assert all(set(r) == VAL_ROW_KEYS for r in val_rows), val_rows
+    assert all(np.isfinite(v) for r in rows for v in r.values()), rows
+    panels = sorted(os.listdir(f"{root}/panels"))
+    assert panels == [f"step{s:08d}_{i}.png" for s in range(
+        CLI_VAL_INTERVAL, CLI_STEPS + 1, CLI_VAL_INTERVAL)
+        for i in range(4)], panels
+    shapes = {check_png(f"{root}/panels/{p}") for p in panels}
+    assert shapes == {(opts.image_height, 5 * opts.image_width)}, shapes
+    assert sorted(os.listdir(f"{root}/checkpoints")) == [
+        f"step_{CLI_STEPS}", f"step_{CLI_VAL_INTERVAL}"], os.listdir(
+            f"{root}/checkpoints")
+    assert len(os.listdir(f"{root}/best")) == 1, os.listdir(f"{root}/best")
+    stats = state.run_stats
+    step_ms = [t * 1e3 for t in stats["step_seconds"]]
+    median = statistics.median(step_ms[2:])
+    loop = sum(stats["step_seconds"]) + sum(stats["loader_seconds"])
+    print(f"[train_cli] hero b{opts.batch_size} bf16 384x512, {state.step} "
+          f"steps; launches {counts}; losses " + ", ".join(
+              f"{r['step']}: {r['train/loss']:.4f}" for r in train_rows)
+          + "; val " + ", ".join(f"{r['step']}: {r['val/loss']:.4f}"
+                                 for r in val_rows))
+    print(f"[train_cli] step ms median {median:.2f} over steps 3-"
+          f"{len(step_ms)} (all " + ", ".join(f"{x:.1f}" for x in step_ms)
+          + f"), phase 7's bare step {bare_step_ms:.2f}; "
+          f"{len(step_ms) / loop:.3f} steps/s over steps and loader waits;"
+          " loader wait ms " + ", ".join(
+              f"{t * 1e3:.1f}" for t in stats["loader_seconds"])
+          + "; checkpoint write ms " + ", ".join(
+              f"{t * 1e3:.0f}" for t in stats["checkpoint_seconds"])
+          + "; validation ms " + ", ".join(
+              f"{t * 1e3:.0f}" for t in stats["val_seconds"])
+          + f"; peak memory {stats['peak_memory_bytes'] / 2 ** 30:.2f} GiB;"
+          f" total {total:.2f} s")
+    del state
+    return dict(launches=counts, step_ms=median, total=total, opts=opts)
+
+
+def phase_resume(device, opts) -> None:
+    """`step_6` of phase 20 restored bit for bit; a run resumed from it
+    to CLI_STEPS; a finetune from it with a fresh optimizer."""
+    root = f"{TRAIN_CLI_OUT}/{opts.name}"
+    step_dir = f"{root}/checkpoints/step_{CLI_VAL_INTERVAL}"
+    saved = torch.load(f"{step_dir}/{ckpt_lib.STATE_FILE}",
+                       map_location="cpu", weights_only=False)
+    model = build_depth_model(opts, device=device, seed=1)
+    state = train.TrainState(model, train.make_optimizer(opts, model),
+                             torch.Generator().manual_seed(1))
+    ckpt_lib.restore_checkpoint(step_dir, state)
+    for name, value in model.state_dict().items():
+        assert value.device.type == device.type, name
+        assert torch.equal(value.cpu(), saved["state_dict"][name]), name
+    got = state.optimizer.inner.state_dict()["state"]
+    for i, moments in saved["optimizer"]["state"].items():
+        for key, value in moments.items():
+            assert torch.equal(got[i][key].cpu(), value), (i, key)
+    assert (state.step, state.optimizer.count,
+            state.optimizer.consecutive_errors,
+            state.optimizer.total_errors) == (
+        saved["step"], saved["count"], saved["consecutive_errors"],
+        saved["total_errors"]) and saved["step"] == CLI_VAL_INTERVAL
+    assert torch.equal(state.generator.get_state(), saved["generator"])
+    n_moments = sum(len(m) for m in got.values())
+    del model, state
+
+    for suffix in ("_resumed", "_tuned"):
+        shutil.rmtree(TRAIN_CLI_OUT + suffix, ignore_errors=True)
+    resumed = train_cli_options(f"{TRAIN_CLI_OUT}_resumed")
+    resumed.resume = step_dir
+    state, counts, total = run_train_cli(resumed, device)
+    steps = CLI_STEPS - CLI_VAL_INTERVAL
+    assert_launches(counts, {"K1": steps + 1, "K2": steps,
+                             "scatter": steps})
+    resumed_root = f"{TRAIN_CLI_OUT}_resumed/{opts.name}"
+    rows = read_jsonl(f"{resumed_root}/metrics.jsonl")
+    assert [r["step"] for r in rows if "train/loss" in r] == [8, 12], rows
+    assert os.listdir(f"{resumed_root}/checkpoints") == [
+        f"step_{CLI_STEPS}"]
+    assert state.step == state.optimizer.count == CLI_STEPS
+    del state
+
+    tuned = train_cli_options(f"{TRAIN_CLI_OUT}_tuned", "--max_steps", "1")
+    tuned.load_weights_from_checkpoint = step_dir
+    state, counts, _ = run_train_cli(tuned, device)
+    assert_launches(counts, {"K1": 1, "K2": 1, "scatter": 1})
+    assert (state.step, state.optimizer.count) == (1, 1)
+    print(f"[resume] step_{CLI_VAL_INTERVAL} restored bit for bit: "
+          f"{len(saved['state_dict'])} parameters and buffers, "
+          f"{n_moments} AdamW state tensors, count {saved['count']}, the "
+          f"generator; resumed to step {CLI_STEPS} in {total:.2f} s; "
+          "finetune from its weights with a fresh optimizer: count 1 "
+          "after one step")
+
+
+def phase_grand_loop(device) -> dict:
+    """`scripts/grand_loop.py` at GRAND_LOOP_STEPS steps: training, the
+    eval CLI with fusion and the mesh score chain together on the card."""
+    out = "build/grand_loop_short"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    summary = grand_loop.main(["--steps", str(GRAND_LOOP_STEPS),
+                               "--out", out, "--mesh_points", "20000"],
+                              device=device)
+    seconds = time.perf_counter() - t0
+    assert all(np.isfinite(v) for v in summary.values()
+               if not isinstance(v, str)), summary
+    plys = [os.path.join(d, f) for d, _, fs in os.walk(f"{out}/eval")
+            for f in fs if f.endswith(".ply")]
+    verts, faces = read_ply(plys[0])
+    assert len(plys) == 1 and len(faces) > 0, (plys, len(faces))
+    print(f"[grand_loop] {GRAND_LOOP_STEPS} steps: {json.dumps(summary)}; "
+          f"mesh {len(verts)} vertices, {len(faces)} faces; {seconds:.1f} s")
+    return summary
+
+
+def phase_group_norm(device) -> None:
+    """One b16 bf16 step of the hero model with GroupNorm-8 in the
+    matching stem: K1, K2 and the scatter once each; then two passes
+    from one state give the same gradient bits."""
+    opts = hero_options(matching_norm="group")
+    model = build_depth_model(opts, device=device, seed=0)
+    assert isinstance(model.matching_model.net[1], torch.nn.GroupNorm)
+    optimizer = train.make_optimizer(opts, model)
+    batch = train.batch_to_device(train_batch(opts, TRAIN_BATCH, seed=7),
+                                  device)
+    reset_launches()
+    losses, norms, step_ms = _run_steps(model, optimizer, batch,
+                                        torch.Generator().manual_seed(0), 1)
+    counts = launches()
+    assert_launches(counts, {"K1": 1, "K2": 1, "scatter": 1})
+    assert np.isfinite(losses[0]) and np.isfinite(norms[0]), (losses, norms)
+    print(f"[group_norm] b{TRAIN_BATCH} bf16 step: launches {counts}; "
+          + _series(losses, norms) + f"; {step_ms[0]:.1f} ms (first step)")
+    assert_repeatable(model, batch, "group_norm")
 
 
 def kernel_entry(name, source, replaces, launches_on_path, measured) -> dict:
@@ -1719,6 +2006,12 @@ def main():
     eval_run = phase_eval_cli(device)
     phase_gt_fusion(device)
     phase_eval_card_vs_cpu(device)
+    t_new = time.perf_counter()
+    train_run = phase_train_cli(device, trained["step_ms"])
+    phase_resume(device, train_run["opts"])
+    phase_grand_loop(device)
+    phase_group_norm(device)
+    print(f"[summary] phases 20-23 took {time.perf_counter() - t_new:.1f} s")
     loaded = [m for m in sys.modules if m in ("jax", "flax", "yaml", "PIL")
               or m == "simplerecon_tpu" or m.startswith("simplerecon_tpu.")]
     assert not loaded, f"the port pulled in {loaded}"
@@ -1738,7 +2031,10 @@ def main():
           f"{eval_run['stats']['forward_device'] * 1e3:.1f} ms, TSDF "
           f"{eval_run['stats']['fusion'] * 1e3:.1f} ms, marching cubes "
           f"{eval_run['stats']['marching_cubes'] * 1e3:.1f} ms, total "
-          f"{eval_run['total']:.1f} s. run so far "
+          f"{eval_run['total']:.1f} s. training CLI: "
+          f"{train_run['launches']}, step {train_run['step_ms']:.1f} ms "
+          f"(bare {trained['step_ms']:.1f}), total "
+          f"{train_run['total']:.1f} s. run total "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         kernel_entry("fused_sweep_mlp",

@@ -219,7 +219,7 @@ def build_depth_model(opts, device=None, seed: int = 0) -> DepthModel:
     if opts.matching_encoder_type != "resnet":
         raise NotImplementedError(
             f"matching_encoder_type={opts.matching_encoder_type!r} is not "
-            "ported (ROADMAP Queue 1, item 12)")
+            "ported (ROADMAP Queue 1, item 6)")
     backend = getattr(opts, "cost_volume_backend", "xla_fused")
     if backend not in HERO_SWEEPS:
         raise ValueError(f"unknown cost_volume_backend {backend!r}")

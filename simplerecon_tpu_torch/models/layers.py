@@ -70,6 +70,22 @@ class InstanceNorm32(nn.Module):
         return ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
 
 
+class GroupNorm32(nn.GroupNorm):
+    """GroupNorm (8 groups by default, eps 1e-5) computed in float32 and
+    cast back to the input dtype, as flax's `nn.GroupNorm(dtype=...)`
+    normalises in float32. It keeps no running statistics, so train and
+    eval mode give the same output. State-dict names are
+    `nn.GroupNorm`'s: `weight` and `bias`."""
+
+    def __init__(self, num_channels: int, num_groups: int = 8,
+                 eps: float = 1e-5):
+        super().__init__(num_groups, num_channels, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight,
+                            self.bias, self.eps).to(x.dtype)
+
+
 class BasicBlock(nn.Module):
     """ResNet basic block with Identity norm (conv bias on) and
     LeakyReLU(0.2). The shortcut is a 1x1 conv when only the channels

@@ -1,7 +1,7 @@
 """ResNet matching encoder (counterpart of
 `simplerecon_tpu/models/matching_encoder.py::ResnetMatchingEncoder`).
 
-    net.0 7x7/2 conv -> net.1 BN(eps 1e-5) -> ReLU ->
+    net.0 7x7/2 conv -> net.1 norm (eps 1e-5) -> ReLU ->
     net.3 max-pool 2x2/1 + BlurPool(4-tap, reflect pad (1,2,1,2), stride 2),
           or the fused kernel pair K3 with pool_impl="pallas"
     -> net.4 layer1 (two torchvision BasicBlocks) ->
@@ -9,9 +9,11 @@
     net.8 3x3 conv(16, replicate pad) -> InstanceNorm
 
 NCHW in, 16-channel features at 1/4 resolution out. The instance norms
-run in float32; the batch norms update their running statistics by
-flax's rule in train mode (`layers.BatchNorm2d`). Module indices are the
-reference state_dict's.
+run in float32. The stem's norms (net.1 and the blocks' bn1, bn2) are
+batch norms that update their running statistics by flax's rule in train
+mode (`layers.BatchNorm2d`), or with `norm="group"` GroupNorm-8 in
+float32 (`layers.GroupNorm32`), the same in train and eval. Module
+indices are the reference state_dict's.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from simplerecon_tpu_torch.models.layers import BatchNorm2d, InstanceNorm32
+from simplerecon_tpu_torch.models.layers import (BatchNorm2d, GroupNorm32,
+                                                InstanceNorm32)
 from simplerecon_tpu_torch.ops import pool
 from simplerecon_tpu_torch.ops.image import pad_edges
 
@@ -69,15 +72,25 @@ class StemPool(nn.Sequential):
         return super().forward(x)
 
 
-class ResNetBasicBlock(nn.Module):
-    """torchvision BasicBlock: bias-free convs, BN, ReLU."""
+def make_norm(norm: str, channels: int) -> nn.Module:
+    """The stem's norm: "batch" (`BatchNorm2d`, running statistics) or
+    "group" (`GroupNorm32`, GroupNorm-8)."""
+    if norm == "batch":
+        return BatchNorm2d(channels, eps=1e-5)
+    if norm == "group":
+        return GroupNorm32(channels)
+    raise ValueError(f"unknown matching_norm {norm!r}")
 
-    def __init__(self, planes: int = 64):
+
+class ResNetBasicBlock(nn.Module):
+    """torchvision BasicBlock: bias-free convs, norm, ReLU."""
+
+    def __init__(self, planes: int = 64, norm: str = "batch"):
         super().__init__()
         self.conv1 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
-        self.bn1 = BatchNorm2d(planes)
+        self.bn1 = make_norm(norm, planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
-        self.bn2 = BatchNorm2d(planes)
+        self.bn2 = make_norm(norm, planes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))
@@ -91,24 +104,22 @@ class ResnetMatchingEncoder(nn.Module):
 
     `pool_impl` "reference" and "fused" are the same math and run the same
     chain here; "pallas" runs the fused max-blur-pool kernels K3 (forward
-    and backward) on the card, their plain versions on the CPU. Only
-    `norm="batch"` is ported.
+    and backward) on the card, their plain versions on the CPU. `norm`
+    is "batch" or "group" (`make_norm`).
     """
 
     def __init__(self, num_ch_out: int = 16, norm: str = "batch",
                  pool_impl: str = "reference"):
         super().__init__()
-        if norm != "batch":
-            raise NotImplementedError(
-                f"matching_norm={norm!r} is not ported; only 'batch' is")
         if pool_impl not in ("reference", "fused", "pallas"):
             raise ValueError(f"unknown matching_pool_impl {pool_impl!r}")
         self.net = nn.Sequential(
             nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False),      # 0
-            BatchNorm2d(64, eps=1e-5),                                 # 1
+            make_norm(norm, 64),                                       # 1
             nn.ReLU(inplace=True),                                     # 2
             StemPool(64, pool_impl),                                   # 3
-            nn.Sequential(ResNetBasicBlock(64), ResNetBasicBlock(64)),  # 4
+            nn.Sequential(ResNetBasicBlock(64, norm),
+                          ResNetBasicBlock(64, norm)),                 # 4
             nn.Conv2d(64, 128, 1),                                     # 5
             InstanceNorm32(),                                          # 6
             nn.LeakyReLU(0.2, inplace=True),                           # 7

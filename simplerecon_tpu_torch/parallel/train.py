@@ -23,6 +23,7 @@ tensors with the reference's key names; GT depth is at s0 resolution
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Dict, Tuple
 
 import numpy as np
@@ -109,6 +110,19 @@ def make_optimizer(opts, model: nn.Module) -> Optimizer:
     return Optimizer(model.parameters(), make_lr_schedule(opts),
                      weight_decay=opts.wd,
                      grad_clip=float(getattr(opts, "grad_clip", 0.0) or 0.0))
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a training run carries from step to step, and what a full
+    checkpoint holds (`utils/checkpoint.py`): the model (parameters and
+    batch-norm statistics), the optimizer (AdamW moments, update count,
+    skip counters), the flip coin's generator, and `step`, the steps
+    taken (a skipped update counts)."""
+    model: nn.Module
+    optimizer: Optimizer
+    generator: torch.Generator
+    step: int = 0
 
 
 def make_example_batch(opts, batch_size: int, dtype=np.float32
@@ -212,13 +226,18 @@ def loss_and_backward(model: nn.Module, batch: Dict, flip: bool) -> Dict:
     return loss_dict
 
 
+def flip_coin(generator: torch.Generator) -> bool:
+    """The step's horizontal-flip coin, heads with probability 1/2."""
+    return bool(torch.rand((), generator=generator) < 0.5)
+
+
 def train_step(model: nn.Module, optimizer: Optimizer, batch: Dict,
                generator: torch.Generator) -> Dict[str, torch.Tensor]:
     """One training step: a flip coin drawn from `generator`, forward in
     train mode, losses, backward, one optimizer update (skipped when a
     gradient is not finite). Returns the detached loss dictionary and
     `grad_norm`."""
-    flip = bool(torch.rand((), generator=generator) < 0.5)
+    flip = flip_coin(generator)
     model.train()
     optimizer.zero_grad()
     loss_dict = loss_and_backward(model, batch, flip)

@@ -4,8 +4,10 @@ of `simplerecon_tpu/scripts/test.py`).
 Per scan: build the tuple dataset, run the depth model batch by batch,
 score each frame against full-resolution GT (the prediction upsampled by
 nearest neighbour, GT > 0.5 m), keep per-frame and per-scene averages,
-and, with `--run_fusion`, fuse the depths into a TSDF and write a mesh
-per scan. The model, the metrics' reductions and the TSDF update run on
+with `--dump_depth_visualization` write each frame's colour, predicted,
+GT and lowest-cost depth as PNGs under `viz/quick_viz/<scan>/`, and,
+with `--run_fusion`, fuse the depths into a TSDF and write a mesh per
+scan. The model, the metrics' reductions and the TSDF update run on
 the device; data, averaging, marching cubes and PLY writing on the host.
 
     python -m simplerecon_tpu_torch.scripts.test \
@@ -118,8 +120,9 @@ def _scan_invK(dataset, scan):
 
 def load_model(opts: Options, device) -> torch.nn.Module:
     """The depth model of `opts` on `device`: with the weights (and the
-    model's options) of `opts.load_weights_from_checkpoint` when given,
-    else seeded from `opts.random_seed`."""
+    model's options) of `opts.load_weights_from_checkpoint` (a checkpoint
+    directory, a step directory or a file) when given, else seeded from
+    `opts.random_seed`."""
     from simplerecon_tpu_torch.utils import checkpoint as ckpt_lib
     path = opts.load_weights_from_checkpoint
     model_opts = opts
@@ -145,10 +148,6 @@ def main(opts: Options, device=None):
     """Runs the evaluation of `opts` on `device` (the CUDA card unless
     another is given). Returns the (frame, scene) `ResultsAverager`s; each
     has `run_stats`, the seconds spent in each stage and counts."""
-    if opts.dump_depth_visualization:
-        raise NotImplementedError(
-            "--dump_depth_visualization is not ported (ROADMAP Queue 1, "
-            "item 8)")
     device = resolve_device(device)
     results_path = os.path.join(opts.output_base_path, opts.name,
                                 opts.dataset, opts.frame_tuple_type)
@@ -257,6 +256,15 @@ def main(opts: Options, device=None):
                 scan_frame_avg.update_results(frame)
                 all_frame_avg.update_results(frame)
             stages["metrics"] += time.perf_counter() - t0
+
+            if opts.dump_depth_visualization:
+                from simplerecon_tpu_torch.utils.visualization import \
+                    quick_viz_export
+                viz_dir = os.path.join(results_path, "viz", "quick_viz",
+                                       scan)
+                for i in range(b):
+                    quick_viz_export(viz_dir, outputs, cur, batch_ind=i,
+                                     prefix=f"{scan}_{i}_")
 
             if opts.cache_depths:
                 from simplerecon_tpu_torch.utils.cache import \

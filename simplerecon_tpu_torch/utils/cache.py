@@ -1,7 +1,8 @@
 """Per-frame model-output caching for `--cache_depths` (counterpart of
 `simplerecon_tpu/utils/cache.py`): each frame's predicted depth,
 intrinsics, pose and frame id pickled as numpy arrays under
-`<cache_dir>/<frame_id>.pickle`, the format the JAX package writes.
+`<cache_dir>/<frame_id>.pickle`, the format the JAX package writes; and
+`copy_code_state`, the source snapshot of a training run.
 """
 
 from __future__ import annotations
@@ -56,3 +57,25 @@ def cache_model_outputs(output_path: str, outputs: Dict, cur_data: Dict,
 def load_cached_output(output_path: str, frame_id: str) -> Dict:
     with open(os.path.join(output_path, f"{frame_id}.pickle"), "rb") as f:
         return pickle.load(f)
+
+
+def copy_code_state(log_dir: str) -> str:
+    """Copies this package's source (Python, CUDA and C++ files) into
+    `<log_dir>/code/simplerecon_tpu_torch/`, for reproducibility. Returns
+    `<log_dir>/code`."""
+    import shutil
+
+    package_root = os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))
+    dst_root = os.path.join(log_dir, "code")
+    for dirpath, dirnames, filenames in os.walk(package_root):
+        dirnames[:] = [d for d in dirnames if d != "__pycache__"]
+        for fname in filenames:
+            if not fname.endswith((".py", ".cu", ".cuh", ".cpp")):
+                continue
+            src = os.path.join(dirpath, fname)
+            dst = os.path.join(dst_root, os.path.relpath(
+                src, os.path.dirname(package_root)))
+            os.makedirs(os.path.dirname(dst), exist_ok=True)
+            shutil.copy2(src, dst)
+    return dst_root

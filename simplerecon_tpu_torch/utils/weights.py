@@ -8,7 +8,8 @@ a JAX `{"params", "batch_stats"}` tree (as numpy arrays) becomes a
 state_dict that both the port and `convert_state_dict` read. Transposes:
 conv kernels (kH, kW, I, O) -> (O, I, kH, kW), depthwise kernels
 (kH, kW, 1, C) -> (C, 1, kH, kW), dense kernels (I, O) -> (O, I); BatchNorm
-scale/bias/mean/var -> weight/bias/running_mean/running_var.
+scale/bias/mean/var -> weight/bias/running_mean/running_var; GroupNorm
+(a scale without batch statistics) scale/bias -> weight/bias.
 """
 
 from __future__ import annotations
@@ -26,8 +27,8 @@ import torch.nn as nn
 def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Redraws every conv and linear layer from `generator` as the JAX
     package initialises them (flax's defaults: weights normal with
-    variance 1/fan_in, biases zero) and resets BatchNorm to the identity.
-    In place; returns `model`."""
+    variance 1/fan_in, biases zero) and resets BatchNorm and GroupNorm to
+    the identity. In place; returns `model`."""
     for mod in model.modules():
         if isinstance(mod, (nn.Conv2d, nn.Linear)):
             std = 1.0 / math.sqrt(mod.weight[0].numel())
@@ -35,7 +36,7 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 0.0, std, generator=generator))
             if mod.bias is not None:
                 mod.bias.zero_()
-        elif isinstance(mod, nn.BatchNorm2d):
+        elif isinstance(mod, (nn.BatchNorm2d, nn.GroupNorm)):
             mod.reset_parameters()
     return model
 
@@ -96,16 +97,20 @@ def _torch_prefix(path: Tuple[str, ...]) -> str:
 def jax_to_state_dict(params: Dict, batch_stats: Dict
                       ) -> Dict[str, np.ndarray]:
     """JAX DepthModel variables (numpy leaves) -> the port's state_dict,
-    including the BlurPool filter and `num_batches_tracked` buffers."""
+    including the BlurPool filter and `num_batches_tracked` buffers. A
+    norm with a scale is a BatchNorm where `batch_stats` holds its
+    statistics and a GroupNorm where it holds none."""
     sd: Dict[str, np.ndarray] = {}
     for path, leaf in _leaf_modules(params):
         prefix = _torch_prefix(path)
-        if "scale" in leaf:  # BatchNorm
-            stats = batch_stats
-            for p in path:
-                stats = stats[p]
+        if "scale" in leaf:
             sd[f"{prefix}.weight"] = np.asarray(leaf["scale"])
             sd[f"{prefix}.bias"] = np.asarray(leaf["bias"])
+            stats = batch_stats
+            for p in path:
+                stats = stats.get(p, {})
+            if not stats:   # GroupNorm
+                continue
             sd[f"{prefix}.running_mean"] = np.asarray(stats["mean"])
             sd[f"{prefix}.running_var"] = np.asarray(stats["var"])
             sd[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)

@@ -44,6 +44,7 @@ from simplerecon_tpu_torch.fusion import mesh as tmesh
 from simplerecon_tpu_torch.testing import (GT_FUSION, synthetic_gt_bounds,
                                            synthetic_gt_frames)
 from simplerecon_tpu_torch.utils import metrics as tmetrics
+from test_torch_port_ops import few_torch_threads  # noqa: F401 (autouse)
 
 METRICS_RTOL = 1e-6
 BF16_ULP = 2.0 ** -8          # relative spacing of bf16 values

@@ -3,7 +3,9 @@ card: the fused sweep (K1 forward, K2 backward), the order-free scatter
 of the sweeps' gradient, the dot-product sweep (K1-dot) and its d_cur
 mode, the stem pool
 (K3 forward and backward) and the hero model's inference-only sweeps (K5
-over a warped stack, K4 the full-width fused warp). Marked `gpu`;
+over a warped stack, K4 the full-width fused warp); the eval and training
+programs on the card, and a full training checkpoint of card tensors
+restored bit for bit. Marked `gpu`;
 skipped where there is no CUDA device. Run on the H100 with
 `python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py`.
 
@@ -75,6 +77,8 @@ order). dx must be nonzero at exactly the elements where the plain
 autograd's is, for a positive cotangent (the first maximum of each 2x2
 window, ties included). Two calls give the same bits.
 """
+
+import math
 
 import pytest
 import torch
@@ -514,7 +518,7 @@ def test_eval_cli_on_the_card_matches_the_cpu(cuda, tmp_path):
                                                compare_meshes,
                                                compare_metrics,
                                                plane_ratio, spread_outputs_)
-    from simplerecon_tpu_torch.utils.checkpoint import save_checkpoint
+    from simplerecon_tpu_torch.utils.checkpoint import save_weights
     assert synthetic.DEFAULT_NUM_FRAMES == 48
     runs = {}
     for tag, device in (("cpu", "cpu"), ("gpu", cuda)):
@@ -522,7 +526,7 @@ def test_eval_cli_on_the_card_matches_the_cpu(cuda, tmp_path):
         if not runs:
             model = spread_outputs_(build_depth_model(opts, device="cpu",
                                                       seed=3), seed=3)
-            ckpt = save_checkpoint(str(tmp_path / "seeded.pt"), model, opts)
+            ckpt = save_weights(str(tmp_path / "seeded.pt"), model, opts)
         opts.load_weights_from_checkpoint = ckpt
         before = cuda_cv.fused_sweep.launches
         runs[tag] = eval_cli.main(opts, device=device)
@@ -591,3 +595,83 @@ def test_training_steps_repeat_their_bits(cuda):
     differ = [n for n, g in grads[0].items() if not torch.equal(g,
                                                                 grads[1][n])]
     assert not differ, differ
+
+
+def test_train_cli_on_the_card(cuda, tmp_path):
+    """The training program at 64x96 bf16, batch 4, 4 steps with a
+    validation at step 4 over 1 batch: K1, K2 and the scatter once a
+    step and K1 once more for the validation, finite logged losses, the
+    checkpoints and a panel; then a resumed run from step 4 to 5."""
+    import json
+    import os
+    from simplerecon_tpu_torch.options import OptionsHandler
+    from simplerecon_tpu_torch.scripts import train as train_cli
+
+    def opts_for(*extra):
+        return OptionsHandler().parse_and_merge_options(cl_args_list=[
+            "--config_file", "configs/models/hero_model.yaml",
+            "--dataset", "synthetic", "--single_debug_scan_id", "scene",
+            "--image_height", "64", "--image_width", "96",
+            "--num_images_in_tuple", "4", "--model_num_views", "4",
+            "--matching_num_depth_bins", "8", "--batch_size", "4",
+            "--val_batch_size", "4", "--log_interval", "1",
+            "--val_interval", "4", "--val_batches", "1", "--num_workers", "2",
+            "--log_dir", str(tmp_path), *extra])
+
+    counters = (cuda_cv.fused_sweep, cuda_cv.fused_sweep_bwd,
+                cuda_cv.sweep_scatter)
+    before = [fn.launches for fn in counters]
+    state = train_cli.main(opts_for("--max_steps", "4"))
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [5, 4, 4]
+    root = tmp_path / "hero_model"
+    with open(root / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["train/loss"] for r in rows if "train/loss" in r]
+    assert len(losses) == 4 and all(map(math.isfinite, losses)), rows
+    assert os.listdir(root / "checkpoints") == ["step_4"]
+    assert os.listdir(root / "best") == ["step_4"]
+    assert os.path.isfile(root / "panels" / "step00000004_0.png")
+    resumed = opts_for("--max_steps", "5")
+    resumed.resume = str(root / "checkpoints")
+    resumed.name = "resumed"
+    state = train_cli.main(resumed)
+    assert (state.step, state.optimizer.count) == (5, 5)
+
+
+def test_full_state_checkpoint_of_card_tensors(cuda, tmp_path):
+    """A training state on the card, two steps in, saved and restored into
+    a fresh state on the card: parameters, buffers, AdamW moments,
+    counters and the generator the same bits, on the card."""
+    from simplerecon_tpu_torch.models.depth_model import build_depth_model
+    from simplerecon_tpu_torch.parallel import train
+    from simplerecon_tpu_torch.testing import hero_options, train_batch
+    from simplerecon_tpu_torch.utils import checkpoint as ckpt_lib
+    opts = hero_options(image_height=64, image_width=96,
+                        matching_num_depth_bins=8, model_num_views=4)
+
+    def fresh(seed):
+        model = build_depth_model(opts, device=cuda, seed=seed)
+        return train.TrainState(model, train.make_optimizer(opts, model),
+                                torch.Generator().manual_seed(seed))
+
+    state = fresh(0)
+    batch = train.batch_to_device(train_batch(opts, 2, seed=1), cuda)
+    for _ in range(2):
+        train.train_step(state.model, state.optimizer, batch,
+                         state.generator)
+        state.step += 1
+    ckpt_lib.save_checkpoint(str(tmp_path), state, opts)
+    other = ckpt_lib.restore_checkpoint(str(tmp_path), fresh(1))
+    for (name, a), b in zip(state.model.state_dict().items(),
+                            other.model.state_dict().values()):
+        assert b.device.type == "cuda" and torch.equal(a, b), name
+    want = state.optimizer.inner.state_dict()["state"]
+    got = other.optimizer.inner.state_dict()["state"]
+    for i, moments in want.items():
+        for key, value in moments.items():
+            assert torch.equal(value.cpu(), got[i][key].cpu()), (i, key)
+            if key != "step":
+                assert got[i][key].device.type == "cuda", (i, key)
+    assert (other.step, other.optimizer.count) == (2, 2)
+    assert torch.equal(other.generator.get_state(),
+                       state.generator.get_state())

@@ -146,6 +146,7 @@ def test_build_depth_model_defaults_to_the_card():
 def test_port_imports_no_jax_flax_yaml_or_pil():
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
+        import numpy as np
         import torch
         import simplerecon_tpu_torch as pkg
         for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
@@ -187,6 +188,16 @@ def test_port_imports_no_jax_flax_yaml_or_pil():
             train.batch_to_device(train_batch(opts, 1, seed=0), "cpu"),
             torch.Generator().manual_seed(0))
         assert torch.isfinite(metrics["loss"]) and optimizer.count == 1
+        # the training program's checkpoints and panels
+        import tempfile
+        from simplerecon_tpu_torch.utils import checkpoint, visualization
+        state = train.TrainState(dot, optimizer, torch.Generator(), step=1)
+        with tempfile.TemporaryDirectory() as tmp:
+            checkpoint.save_checkpoint(tmp, state)
+            checkpoint.restore_checkpoint(tmp, state)
+            visualization.save_image(tmp + "/panel.png",
+                                     visualization.turbo_colormap(
+                                         np.zeros((4, 4))))
         loaded = [m for m in sys.modules
                   if m in ("jax", "flax", "yaml", "PIL")
                   or m == "simplerecon_tpu"
@@ -202,7 +213,6 @@ def test_port_imports_no_jax_flax_yaml_or_pil():
 
 
 @pytest.mark.parametrize("override", [
-    {"matching_norm": "group"},
     {"matching_encoder_type": "unet_encoder"},
 ], ids=lambda o: "-".join(map(str, o.values())))
 def test_unported_options_raise(override):

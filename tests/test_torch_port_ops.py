@@ -38,13 +38,24 @@ GEO_ATOL = 1e-6
 SWEEP_TOL = 2e-4
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def few_torch_threads():
     """Tier-1 runs several test workers on one machine; torch's default
-    of a thread per core oversubscribes it and slows small ops tenfold."""
+    of a thread per core oversubscribes it and slows small ops tenfold.
+    Module-scoped, so that it holds in a module's fixtures too (pytest
+    sets up fixtures of a wider scope first: a function-scoped one came
+    after them, and a port CLI run in a module fixture took 69 s with 8
+    threads in a run of 6 workers, 9 s with 2).
+
+    It also hands torch's global random state back as it found it: the
+    port's modules draw their default init from it before the seeded
+    redraw, and a later test in the same worker that builds a model from
+    the global state (`tests/test_full_model_golden.py`) would otherwise
+    see a state that depends on which port files ran before it."""
     n = torch.get_num_threads()
     torch.set_num_threads(2)
-    yield
+    with torch.random.fork_rng(devices=[]):
+        yield
     torch.set_num_threads(n)
 
 
