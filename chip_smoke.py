@@ -102,9 +102,10 @@ non-zero, and only a run that passes them all prints the last line:
 17. the eval CLI (`scripts/test.py`) as a user runs it: the hero YAML
    (bf16, b16, 384x512, 8 views, 64 planes, `xla_fused`), the 48-frame
    synthetic scene (41 tuples in batches of 16, 16, 9), metrics, TSDF
-   fusion at 4 cm and 3 m, a PLY: K1 launched once a batch and no other
-   kernel, finite metrics JSONs and mesh; loader wait, forward ms per
-   frame by CUDA events, metrics, TSDF, marching cubes and PLY times;
+   fusion at 4 cm and 3 m, a PLY, cached depths: K1 launched once a
+   batch and no other kernel, finite metrics JSONs and mesh; loader wait,
+   forward ms per frame by CUDA events, metrics, TSDF, marching cubes and
+   PLY times;
 18. the scene's 48 GT depths fused on the card against the JAX
    package's grid, mesh counts and F1 against the room mesh
    (`testing.GT_FUSION`), with the TSDF's ms per frame;
@@ -130,10 +131,32 @@ non-zero, and only a run that passes them all prints the last line:
    and the mesh's score chain together; finite summary numbers, a PLY;
 23. the hero model with `matching_norm="group"`: one b16 bf16 step runs
    K1, K2 and the scatter once each, then two passes from one state
-   give the same gradient bits.
+   give the same gradient bits;
+24. the image codec on the card's host: `native/image_codec.cpp` built,
+   the fixtures of `tests/data_torch/` (JPEGs at 4:4:4, 4:2:2 with
+   restart markers, 4:2:0 and grey, a 968x1296 JPEG, 480x640 PNGs at 8
+   and 16 bits) decoded to the SHA-256 digests of Pillow's decode; decode
+   ms of the 968x1296 JPEG and the PNGs;
+25. the eval CLI over a scan on disk: the 48-frame synthetic scene
+   written in ScanNet's layout (`testing.write_scannet_scan`: 384x512
+   colour PNGs, 480x640 millimetre depth PNGs, poses, intrinsics) with
+   phase 17's 41 tuples; the port's `generate_tuples` writes its dense
+   tuples; `scripts/test.py --dataset scannet` with the hero YAML and
+   phase 17's seeded weights: K1 once a batch and no other kernel,
+   finite metrics and a PLY, cached depths within `testing.EVAL_TOL` of
+   phase 17's (and whether they are the same bits); loader wait per
+   batch, decode ms per frame;
+26. the scan's 48 depths read back through the ScanNet reader and fused
+   on the card as in phase 18: F1 against the room mesh within 0.01 of
+   phase 18's;
+27. the training CLI over the scan: the port's `generate_tuples` with
+   the train type, then `scripts/train.py --dataset scannet` at full
+   width for 4 steps (batch 16, or the scan's tuple count when fewer):
+   K1, K2 and the scatter once a step, no other kernel and no plain
+   sweep, finite losses.
 Phases 7, 12 and 23 end with two forward-and-backward passes from one
-state whose gradients must be the same bits. The run prints its total
-time.
+state whose gradients must be the same bits. The run prints the time of
+phases 20-23, of phases 24-27 and its total.
 
 The line before the last is the kernel report as JSON (the seven
 kernels that replace the TPU kernels, the scatter that sums K2's d_src
@@ -173,12 +196,15 @@ from simplerecon_tpu_torch.ops import (  # noqa: E402
 from simplerecon_tpu_torch.ops import cost_volume as cv_ops  # noqa: E402
 from simplerecon_tpu_torch.parallel import train  # noqa: E402
 from simplerecon_tpu_torch import native  # noqa: E402
-from simplerecon_tpu_torch.data import synthetic  # noqa: E402
+from simplerecon_tpu_torch.data import codec, synthetic  # noqa: E402
+from simplerecon_tpu_torch.data.io import readlines  # noqa: E402
+from simplerecon_tpu_torch.data.scannet import ScannetDataset  # noqa: E402
 from simplerecon_tpu_torch.data.synthetic import make_room_mesh  # noqa: E402
 from simplerecon_tpu_torch.fusion.fusers import OurFuser  # noqa: E402
 from simplerecon_tpu_torch.fusion.mesh import read_ply  # noqa: E402
 from simplerecon_tpu_torch.options import OptionsHandler  # noqa: E402
 from simplerecon_tpu_torch.scripts import determinism  # noqa: E402
+from simplerecon_tpu_torch.scripts import generate_tuples  # noqa: E402
 from simplerecon_tpu_torch.scripts import test as eval_cli  # noqa: E402
 from simplerecon_tpu_torch.scripts import grand_loop  # noqa: E402
 from simplerecon_tpu_torch.scripts import train as train_cli  # noqa: E402
@@ -188,13 +214,15 @@ from simplerecon_tpu_torch.utils.checkpoint import \
 from simplerecon_tpu_torch.utils.mesh_metrics import \
     evaluate_mesh  # noqa: E402
 from simplerecon_tpu_torch.testing import (  # noqa: E402
-    GEOMETRIES, GT_FUSION, POOL_CASES, SWEEP_GRAD_NAMES,
-    compare_cached_depths, compare_meshes, compare_metrics, dot_case,
+    GEOMETRIES, GT_FUSION, POOL_CASES, SCAN_ID, SWEEP_GRAD_NAMES,
+    TUPLE_SUFFIX, compare_cached_depths, compare_meshes, compare_metrics,
+    compare_scan_depths, dot_case,
     dot_options, hero_options, plane_ratio, synthetic_gt_bounds,
     synthetic_gt_frames, pool_case, pool_cotangent, posed_stream,
     relative_errors, scatter_case,
     shifted, spread_outputs_, stack_case, sweep_case, sweep_cotangent,
-    train_batch, warp_case)
+    synthetic_tuples, train_batch, warp_case, write_scannet_scan,
+    write_tuples)
 
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # K1 in bf16 against the float32 plain version, relative L2: bf16 rounds
@@ -1553,16 +1581,16 @@ def eval_results(opts) -> str:
         f"{opts.frame_tuple_type}"
 
 
-def check_eval_outputs(opts) -> tuple:
+def check_eval_outputs(opts, scan: str = "scene") -> tuple:
     """The metrics JSONs hold finite scores and the scan's PLY finite
     vertices; returns the mesh."""
     results = eval_results(opts)
     for name in ("all_frame_avg_metrics.json", "all_scene_avg_metrics.json",
-                 "scene_avg_metrics.json"):
+                 f"{scan}_avg_metrics.json"):
         with open(f"{results}/scores/{name}") as f:
             scores = json.load(f)["scores"]
         assert scores and all(np.isfinite(v) for v in scores.values()), name
-    verts, faces = read_ply(f"{results}/meshes/4cm_3.0m/scene.ply")
+    verts, faces = read_ply(f"{results}/meshes/4cm_3.0m/{scan}.ply")
     assert len(faces) > 0 and np.isfinite(verts).all(), len(faces)
     return verts, faces
 
@@ -1573,7 +1601,7 @@ def phase_eval_cli(device) -> dict:
     synthetic scene (41 tuples: batches of 16, 16, 9), metrics, TSDF
     fusion (4 cm, 3 m) and a PLY; K1 once a batch, no other kernel."""
     shutil.rmtree(EVAL_OUT, ignore_errors=True)
-    opts = eval_options(EVAL_OUT)
+    opts = eval_options(EVAL_OUT, "--cache_depths")
     assert (opts.batch_size, opts.compute_dtype, opts.image_height,
             opts.image_width, opts.model_num_views,
             opts.matching_num_depth_bins, opts.cost_volume_backend) == (
@@ -1605,7 +1633,7 @@ def phase_eval_cli(device) -> dict:
           f"{stats['ply'] * 1e3:.1f} ms; mesh {len(verts)} vertices, "
           f"{len(faces)} faces; abs_rel "
           f"{frame_avg.final_metrics['abs_rel']:.4f} (seeded weights)")
-    return dict(launches=counts, stats=stats, total=total)
+    return dict(launches=counts, stats=stats, total=total, opts=opts)
 
 
 def phase_gt_fusion(device) -> dict:
@@ -1646,7 +1674,8 @@ def phase_gt_fusion(device) -> dict:
                       (len(faces), GT_FUSION["faces"])):
         assert abs(got - want) <= 0.01 * want, (got, want)
     assert abs(scores["f1"] - GT_FUSION["f1"]) <= 0.005, scores
-    return dict(fuse_ms=fuse_ms, voxels=int(np.prod(dims)))
+    return dict(fuse_ms=fuse_ms, voxels=int(np.prod(dims)),
+                f1=scores["f1"])
 
 
 def phase_eval_card_vs_cpu(device):
@@ -1785,11 +1814,11 @@ def read_jsonl(path: str) -> list:
         return [json.loads(line) for line in f if line.strip()]
 
 
-def assert_hero_full_width(opts):
+def assert_hero_full_width(opts, batch: int = 16):
     assert (opts.batch_size, opts.compute_dtype, opts.image_height,
             opts.image_width, opts.model_num_views,
             opts.matching_num_depth_bins, opts.cost_volume_backend) == (
-        16, "bfloat16", 384, 512, 8, 64, "xla_fused"), opts
+        batch, "bfloat16", 384, 512, 8, 64, "xla_fused"), opts
 
 
 def run_train_cli(opts, device) -> tuple:
@@ -1964,6 +1993,233 @@ def phase_group_norm(device) -> None:
     assert_repeatable(model, batch, "group_norm")
 
 
+CODEC_FIXTURES = "tests/data_torch"
+SCAN_ROOT = "build/scannet_scan"
+SCAN_EVAL_OUT = "build/eval_scan_out"
+SCAN_TRAIN_OUT = "build/train_scan"
+SCAN_STEPS = 4
+SCAN_F1_TOL = 0.01
+SCAN_SIZE = (384, 512)        # the scan's colour; its depth is 5/4 of it
+
+
+def phase_codec() -> dict:
+    """`native/image_codec.cpp` built on the card's host, then the
+    committed fixtures decoded: each decode's SHA-256 must be the digest
+    of Pillow's decode (`tests/data_torch/digests.json`, recorded where
+    Pillow is). Times a 968x1296 JPEG and the 480x640 PNGs."""
+    t0 = time.perf_counter()
+    lib = native.load_library("image_codec")
+    build_s = time.perf_counter() - t0
+    with open(f"{CODEC_FIXTURES}/digests.json") as f:
+        digests = json.load(f)
+    ms = {}
+    for name, want in sorted(digests.items()):
+        with open(f"{CODEC_FIXTURES}/{name}", "rb") as f:
+            data = f.read()
+        image = codec.decode_image(data, name)
+        got = hashlib.sha256(image.tobytes()).hexdigest()
+        assert (got, list(image.shape), str(image.dtype)) == (
+            want["sha256"], want["shape"], want["dtype"]), (name, got)
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            codec.decode_image(data, name)
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = statistics.median(times)
+    print(f"[codec] {lib._name}: g++ and load {build_s:.2f} s; {len(ms)} "
+          "fixtures decode to Pillow's digests: " + ", ".join(sorted(ms)))
+    print(f"[codec] decode ms a frame (median of 5): 968x1296 JPEG 4:2:0 "
+          f"{ms['jpeg_968x1296.jpg']:.2f}, 480x640 PNG 8-bit RGB "
+          f"{ms['png_rgb8_480x640.png']:.2f}, 480x640 PNG 16-bit grey "
+          f"{ms['png_depth16_480x640.png']:.2f}")
+    return ms
+
+
+def scan_options(*args):
+    return OptionsHandler().parse_and_merge_options(cl_args_list=[
+        "--dataset", "scannet", "--dataset_path", SCAN_ROOT,
+        "--single_debug_scan_id", SCAN_ID, "--num_workers", "1", *args])
+
+
+def generated_tuples(split: str, *args) -> list:
+    """The port's `scripts/generate_tuples.py` on the written scan; its
+    lines, each the scan and 8 of its frame ids."""
+    out = generate_tuples.main(scan_options(
+        "--split", split, "--num_images_in_tuple", "8",
+        "--tuple_info_file_location", f"{SCAN_ROOT}/tuples", *args))
+    lines = readlines(out)
+    ids = {f"{i:06d}" for i in range(SYNTHETIC_FRAMES)}
+    for line in lines:
+        parts = line.split(" ")
+        assert parts[0] == SCAN_ID and len(parts) == 9, line
+        assert set(parts[1:]) <= ids, line
+    return lines
+
+
+def phase_scan_eval(device, synthetic_run: dict) -> dict:
+    """The eval CLI over the 48-frame synthetic scene written in
+    ScanNet's layout (`testing.write_scannet_scan`) with phase 17's 41
+    tuples: the hero YAML at full width, phase 17's seeded weights, K1
+    once a batch and no other kernel, finite metrics and a PLY, cached
+    depths within `testing.EVAL_TOL` of phase 17's. The port's
+    `generate_tuples` writes well-formed dense tuples of the scan."""
+    shutil.rmtree(SCAN_ROOT, ignore_errors=True)
+    shutil.rmtree(SCAN_EVAL_OUT, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_scannet_scan(SCAN_ROOT, SYNTHETIC_FRAMES, *SCAN_SIZE)
+    write_tuples(SCAN_ROOT, synthetic_tuples(SYNTHETIC_FRAMES, 8))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dense = generated_tuples("test", "--frame_tuple_type", "dense",
+                             "--mv_tuple_file_suffix", "_dense.txt")
+    tuples_s = time.perf_counter() - t0
+    assert len(dense) == SYNTHETIC_FRAMES - 1, len(dense)
+
+    opts = eval_options(SCAN_EVAL_OUT, "--dataset", "scannet",
+                        "--dataset_path", SCAN_ROOT,
+                        "--single_debug_scan_id", SCAN_ID, "--cache_depths")
+    assert_hero_full_width(opts)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    frame_avg, _ = eval_cli.main(opts)
+    total = time.perf_counter() - t0
+    counts = launches()
+    stats = frame_avg.run_stats
+    assert (stats["frames"], stats["batches"], stats["fused_frames"]) == (
+        41, 3, 41), stats
+    assert_launches(counts, {"K1": stats["batches"]})
+    verts, faces = check_eval_outputs(opts, SCAN_ID)
+    depths = compare_scan_depths(
+        f"{eval_results(opts)}/depths/{SCAN_ID}",
+        f"{eval_results(synthetic_run['opts'])}/depths/scene")
+    assert depths["frames"] == 41, depths
+
+    # the reader's decode of one frame: colour PNG, depth PNG at the
+    # model's output size and at full size
+    dataset = ScannetDataset(SCAN_ROOT, "test", None,
+                             image_height=SCAN_SIZE[0],
+                             image_width=SCAN_SIZE[1],
+                             include_full_res_depth=True)
+    times = []
+    for i in range(8):
+        fid = f"{i:06d}"
+        t0 = time.perf_counter()
+        dataset.load_color(SCAN_ID, fid)
+        dataset.load_target_size_depth_and_mask(SCAN_ID, fid)
+        dataset.load_full_res_depth_and_mask(SCAN_ID, fid)
+        times.append((time.perf_counter() - t0) * 1e3)
+    decode_ms = statistics.median(times)
+    batches = stats["batches"]
+    h, w = SCAN_SIZE
+    print(f"[scan_eval] wrote the scan ({SYNTHETIC_FRAMES} frames, colour "
+          f"{h}x{w} PNG, depth {h * 5 // 4}x{w * 5 // 4} 16-bit PNG) in "
+          f"{write_s:.2f} s; "
+          f"generate_tuples dense: {len(dense)} tuples in {tuples_s:.2f} s")
+    print(f"[scan_eval] eval CLI --dataset scannet, hero b{opts.batch_size} "
+          f"{opts.compute_dtype} {opts.image_height}x{opts.image_width}: "
+          f"{stats['frames']} frames in {batches} batches; "
+          f"launches {counts}; total {total:.2f} s (phase 17 "
+          f"{synthetic_run['total']:.2f} s); loader wait "
+          f"{stats['loader'] / batches * 1e3:.2f} ms a batch (phase 17 "
+          f"{synthetic_run['stats']['loader'] / batches * 1e3:.2f}); "
+          f"decode {decode_ms:.2f} ms a frame (colour, and depth at the "
+          f"model's and at full size; median of 8); mesh {len(verts)} "
+          f"vertices, "
+          f"{len(faces)} faces; abs_rel "
+          f"{frame_avg.final_metrics['abs_rel']:.4f}")
+    print(f"[scan_eval] cached depths against phase 17's: {depths['frames']}"
+          f" frames, largest relative difference {depths['depth_rel']:.2e}, "
+          f"the same bits: {depths['same_bits']}")
+    return dict(launches=counts, stats=stats, total=total,
+                decode_ms=decode_ms, same_bits=depths["same_bits"])
+
+
+def phase_scan_gt_fusion(device, synthetic_f1: float) -> dict:
+    """The scan's 48 depths as the ScanNet reader reads them back (the
+    480x640 millimetre PNGs to 192x256 by nearest neighbour, its
+    intrinsics and poses) fused on the card as phase 18 fuses the
+    synthetic GT: F1 against the room mesh within SCAN_F1_TOL of phase
+    18's."""
+    dataset = ScannetDataset(SCAN_ROOT, "test", None,
+                             image_height=SCAN_SIZE[0],
+                             image_width=SCAN_SIZE[1])
+    fuser = OurFuser(fusion_resolution=0.04, max_fusion_depth=3.0,
+                     bounds_3x2=synthetic_gt_bounds(), device=device)
+    frames = []
+    for i in range(SYNTHETIC_FRAMES):
+        fid = f"{i:06d}"
+        depth, _, _ = dataset.load_target_size_depth_and_mask(SCAN_ID, fid)
+        _, cam_T_world = dataset.load_pose(SCAN_ID, fid)
+        K = dataset.load_intrinsics(SCAN_ID, fid)["K_s0_b44"]
+        frames.append([torch.from_numpy(np.asarray(a, np.float32)).to(device)
+                       for a in (np.nan_to_num(depth), K, cam_T_world)])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for depth, K, cam_T_world in frames:
+        fuser.fuse_frames(depth[None], K[None], cam_T_world[None])
+    end.record()
+    end.synchronize()
+    fuse_ms = start.elapsed_time(end) / len(frames)
+    verts, faces = fuser.get_mesh()
+    room_v, room_f, _ = make_room_mesh()
+    scores = evaluate_mesh(verts, faces, room_v, room_f, num_points=100_000)
+    print(f"[scan_gt_fusion] {len(frames)} depths read back from the scan: "
+          f"{fuse_ms:.3f} ms/frame by CUDA events; mesh {len(verts)} "
+          f"vertices, {len(faces)} faces; precision "
+          f"{scores['precision']:.4f} recall {scores['recall']:.4f} F1 "
+          f"{scores['f1']:.4f} (phase 18 {synthetic_f1:.4f})")
+    assert abs(scores["f1"] - synthetic_f1) <= SCAN_F1_TOL, scores
+    return dict(f1=scores["f1"], fuse_ms=fuse_ms)
+
+
+def phase_scan_train(device) -> dict:
+    """The port's `generate_tuples` with the train type on the scan, then
+    `scripts/train.py --dataset scannet` at full width for SCAN_STEPS
+    steps (batch 16, or the scan's tuple count when it has fewer; no
+    validation): K1, K2 and the scatter once a step, no other kernel, no
+    plain sweep, finite losses."""
+    t0 = time.perf_counter()
+    chains = generated_tuples("train")
+    tuples_s = time.perf_counter() - t0
+    shutil.copy(f"{SCAN_ROOT}/tuples/train{TUPLE_SUFFIX}",
+                f"{SCAN_ROOT}/tuples/val{TUPLE_SUFFIX}")
+    batch = min(TRAIN_BATCH, len(chains))
+    assert batch > 0
+    shutil.rmtree(SCAN_TRAIN_OUT, ignore_errors=True)
+    opts = train_cli_options(
+        SCAN_TRAIN_OUT, "--dataset", "scannet", "--dataset_path", SCAN_ROOT,
+        "--single_debug_scan_id", SCAN_ID, "--tuple_info_file_location",
+        f"{SCAN_ROOT}/tuples", "--max_steps", str(SCAN_STEPS),
+        "--log_interval", "1", "--val_interval", str(10 * SCAN_STEPS),
+        "--batch_size", str(batch))
+    assert_hero_full_width(opts, batch)
+    state, counts, total = run_train_cli(opts, device)
+    assert_launches(counts, {"K1": SCAN_STEPS, "K2": SCAN_STEPS,
+                             "scatter": SCAN_STEPS})
+    assert state.step == SCAN_STEPS, state.step
+    rows = read_jsonl(f"{SCAN_TRAIN_OUT}/{opts.name}/metrics.jsonl")
+    assert [r["step"] for r in rows] == list(range(1, SCAN_STEPS + 1)), rows
+    assert all(np.isfinite(v) for r in rows for v in r.values()), rows
+    stats = state.run_stats
+    print(f"[scan_train] generate_tuples train: {len(chains)} chains of 8 "
+          f"frames in {tuples_s:.2f} s; batch {batch}"
+          + ("" if batch == TRAIN_BATCH else
+             f" (the scan's {len(chains)} tuples, fewer than {TRAIN_BATCH})")
+          + f"; {SCAN_STEPS} steps, launches {counts}; losses "
+          + ", ".join(f"{r['train/loss']:.4f}" for r in rows)
+          + "; step ms " + ", ".join(f"{t * 1e3:.1f}"
+                                     for t in stats["step_seconds"])
+          + "; loader wait ms " + ", ".join(
+              f"{t * 1e3:.1f}" for t in stats["loader_seconds"])
+          + f"; total {total:.2f} s")
+    del state
+    return dict(launches=counts, batch=batch, total=total,
+                loader_s=stats["loader_seconds"])
+
+
 def kernel_entry(name, source, replaces, launches_on_path, measured) -> dict:
     bound, bound_by = measured["bound"]
     return {"name": name, "route": "cuda", "source": source,
@@ -2004,14 +2260,21 @@ def main():
                                  precision="32", cost_volume_backend=backend),
             f"card_vs_cpu {backend}")
     eval_run = phase_eval_cli(device)
-    phase_gt_fusion(device)
+    gt_fusion = phase_gt_fusion(device)
     phase_eval_card_vs_cpu(device)
     t_new = time.perf_counter()
     train_run = phase_train_cli(device, trained["step_ms"])
     phase_resume(device, train_run["opts"])
     phase_grand_loop(device)
     phase_group_norm(device)
-    print(f"[summary] phases 20-23 took {time.perf_counter() - t_new:.1f} s")
+    t_scan = time.perf_counter()
+    print(f"[summary] phases 20-23 took {t_scan - t_new:.1f} s")
+    phase_codec()
+    scan_eval = phase_scan_eval(device, eval_run)
+    phase_scan_gt_fusion(device, gt_fusion["f1"])
+    scan_train = phase_scan_train(device)
+    print(f"[summary] phases 24-27 took {time.perf_counter() - t_scan:.1f} s"
+          f" (phases 20-23 {t_scan - t_new:.1f} s)")
     loaded = [m for m in sys.modules if m in ("jax", "flax", "yaml", "PIL")
               or m == "simplerecon_tpu" or m.startswith("simplerecon_tpu.")]
     assert not loaded, f"the port pulled in {loaded}"
@@ -2034,7 +2297,10 @@ def main():
           f"{eval_run['total']:.1f} s. training CLI: "
           f"{train_run['launches']}, step {train_run['step_ms']:.1f} ms "
           f"(bare {trained['step_ms']:.1f}), total "
-          f"{train_run['total']:.1f} s. run total "
+          f"{train_run['total']:.1f} s. file-backed eval CLI: K1 "
+          f"{scan_eval['launches']['K1']}, total {scan_eval['total']:.1f} s;"
+          f" file-backed training CLI: {scan_train['launches']}, total "
+          f"{scan_train['total']:.1f} s. run total "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         kernel_entry("fused_sweep_mlp",

@@ -1,7 +1,8 @@
-"""Host-side helpers of the data layer (counterpart of the numpy parts of
-`simplerecon_tpu/data/io.py`): tuple files, imagenet normalisation, the
-train-time colour jitter and the DVMVS pose distance. Decoding image files
-waits with the file-backed dataset readers (ROADMAP Queue 1, item 3).
+"""Host-side helpers of the data layer (counterpart of
+`simplerecon_tpu/data/io.py`): tuple files, image and depth files read
+through `data/codec.py` (no Pillow) with the JAX reader's aspect crop,
+resize and scaling, imagenet normalisation, the train-time colour jitter
+and the DVMVS pose distance.
 """
 
 from __future__ import annotations
@@ -9,6 +10,8 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+from simplerecon_tpu_torch.data import codec
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -28,6 +31,58 @@ def imagenet_normalize_np(image_3hw: np.ndarray) -> np.ndarray:
 def reverse_imagenet_normalize_np(image_3hw: np.ndarray) -> np.ndarray:
     return (image_3hw * IMAGENET_STD[:, None, None]
             + IMAGENET_MEAN[:, None, None]).astype(np.float32)
+
+
+def read_image_file(filepath: str, height: Optional[int] = None,
+                    width: Optional[int] = None,
+                    value_scale_factor: float = 1.0,
+                    resampling_mode: str = "bilinear",
+                    target_aspect_ratio: Optional[float] = None
+                    ) -> np.ndarray:
+    """Decode (+ optional aspect crop, resize to (height, width) with
+    Pillow's "bilinear" or "nearest", value scale) -> (c, h, w) float32;
+    8-bit images in [0, 1], 16-bit ones as stored."""
+    img = codec.read_image(filepath)
+    if target_aspect_ratio:
+        img = crop_image_to_target_ratio(img, target_aspect_ratio)
+    if height is not None and width is not None:
+        if img.shape[:2] != (height, width):
+            img = codec.resize(img, height, width, resampling_mode)
+    arr = np.asarray(img, np.float32)
+    if arr.ndim == 2:
+        arr = arr[None]
+    else:
+        arr = arr.transpose(2, 0, 1)
+    if img.dtype == np.uint8:
+        arr = arr / 255.0
+    return arr * value_scale_factor
+
+
+def crop_image_to_target_ratio(image: np.ndarray,
+                               target_aspect_ratio: float = 4.0 / 3.0
+                               ) -> np.ndarray:
+    """Centre crop of an (h, w[, c]) image to an aspect ratio."""
+    height, width = image.shape[:2]
+    actual = width / height
+    if actual > target_aspect_ratio:
+        new_w = int(height * target_aspect_ratio)
+        left = (width - new_w) // 2
+        return image[:, left:left + new_w]
+    if actual < target_aspect_ratio:
+        new_h = int(width / target_aspect_ratio)
+        top = (height - new_h) // 2
+        return image[top:top + new_h]
+    return image
+
+
+def read_depth_png(path: str, height: Optional[int] = None,
+                   width: Optional[int] = None) -> np.ndarray:
+    """A millimetre depth PNG as (1, h, w) float32 metres, resized by
+    nearest neighbour to (height, width) when given."""
+    depth = codec.read_image(path)
+    if height is not None and depth.shape != (height, width):
+        depth = codec.resize(depth, height, width, "nearest")
+    return np.asarray(depth, np.float32)[None] * 1e-3
 
 
 class ColorJitter:

@@ -2,9 +2,8 @@
 `get_dataset(name, split_file, single_debug_scan_id)` returns the dataset
 class and the scan list.
 
-"synthetic" (the rasterized room, no files) is ported. The file-backed
-readers of the JAX package need an image decoder and wait for ROADMAP
-Queue 1, item 3; asking for one raises `NotImplementedError`.
+"synthetic" is the rasterized room (no files); the others read scans from
+disk in their dataset's layout, decoding images with `data/codec.py`.
 """
 
 from __future__ import annotations
@@ -13,13 +12,24 @@ from typing import List, Optional, Tuple, Type
 
 from simplerecon_tpu_torch.data import io as dio
 
-# the JAX package's file-backed datasets, not ported yet
-WAITING = ("scannet", "7scenes", "vdr", "arkit", "colmap", "scanniverse")
-
 
 def _classes():
+    from simplerecon_tpu_torch.data.arkit import ArkitDataset
+    from simplerecon_tpu_torch.data.colmap import ColmapDataset
+    from simplerecon_tpu_torch.data.scannet import ScannetDataset
+    from simplerecon_tpu_torch.data.scanniverse import ScanniverseDataset
+    from simplerecon_tpu_torch.data.seven_scenes import SevenScenesDataset
     from simplerecon_tpu_torch.data.synthetic import SyntheticDataset
-    return {"synthetic": SyntheticDataset}
+    from simplerecon_tpu_torch.data.vdr import VDRDataset
+    return {
+        "scannet": ScannetDataset,
+        "7scenes": SevenScenesDataset,
+        "vdr": VDRDataset,
+        "arkit": ArkitDataset,
+        "colmap": ColmapDataset,
+        "scanniverse": ScanniverseDataset,
+        "synthetic": SyntheticDataset,
+    }
 
 
 def get_dataset(dataset_name: str,
@@ -27,10 +37,6 @@ def get_dataset(dataset_name: str,
                 single_debug_scan_id: Optional[str] = None,
                 verbose: bool = True) -> Tuple[Type, List[str]]:
     """Returns (dataset_class, scan_names)."""
-    if dataset_name in WAITING:
-        raise NotImplementedError(
-            f"dataset {dataset_name!r} is not ported: its file reader waits "
-            "for ROADMAP Queue 1, item 3")
     classes = _classes()
     if dataset_name not in classes:
         raise ValueError(f"unknown dataset {dataset_name!r}; "

@@ -8,6 +8,7 @@ these in float32.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from simplerecon_tpu_torch.ops import image as image_ops
@@ -104,3 +105,20 @@ def normals_from_depth(depth_bhw: torch.Tensor, invK_b44: torch.Tensor,
     grads = image_ops.spatial_gradient(points_bhw3)     # (b, h, w, 3, 2)
     normals = torch.linalg.cross(grads[..., 0], grads[..., 1], dim=-1)
     return normalize(normals, dim=-1)
+
+
+def qvec2rotmat(qvec) -> np.ndarray:
+    """Quaternion (w, x, y, z) to a 3x3 rotation matrix (numpy, for host
+    pose wrangling)."""
+    w, x, y, z = qvec
+    return np.array([
+        [1 - 2 * y ** 2 - 2 * z ** 2, 2 * x * y - 2 * w * z, 2 * z * x + 2 * w * y],
+        [2 * x * y + 2 * w * z, 1 - 2 * x ** 2 - 2 * z ** 2, 2 * y * z - 2 * w * x],
+        [2 * z * x - 2 * w * y, 2 * y * z + 2 * w * x, 1 - 2 * x ** 2 - 2 * y ** 2],
+    ])
+
+
+def rotx(t: float) -> np.ndarray:
+    """Rotation by t about x (numpy)."""
+    c, s = np.cos(t), np.sin(t)
+    return np.array([[1, 0, 0], [0, c, -s], [0, s, c]])

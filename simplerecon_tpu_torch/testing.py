@@ -509,3 +509,122 @@ def compare_meshes(got_ply: str, want_ply: str) -> dict:
             measured)
     assert scores["f1"] >= EVAL_TOL["mesh_f1"], measured
     return measured
+
+
+# The synthetic scene written to disk in ScanNet's layout
+SCAN_ID = "scene0000_00"
+# the tuple files' suffix that `Options` defaults to
+TUPLE_SUFFIX = "_eight_view_deepvmvs.txt"
+
+
+def synthetic_tuples(num_frames: int = 48, num_views: int = 8) -> list:
+    """The synthetic dataset's tuples as frame indices: each frame from
+    `num_views - 1` on, then the frames just before it."""
+    return [[i] + list(range(i - num_views + 1, i))
+            for i in range(num_views - 1, num_frames)]
+
+
+def write_tuples(root: str, tuples: list, splits=("test",),
+                 scan: str = SCAN_ID, suffix: str = TUPLE_SUFFIX) -> str:
+    """Writes `tuples` (lists of frame indices) as ScanNet tuple lines,
+    `<scan> 000007 000000 ...`, to `<root>/tuples/<split><suffix>` for
+    each split. Returns the tuple directory."""
+    import os
+    tuple_dir = os.path.join(root, "tuples")
+    os.makedirs(tuple_dir, exist_ok=True)
+    lines = [" ".join([scan] + [f"{i:06d}" for i in t]) for t in tuples]
+    for split in splits:
+        with open(os.path.join(tuple_dir, f"{split}{suffix}"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return tuple_dir
+
+
+def write_scannet_scan(root: str, num_frames: int = 48,
+                       image_height: int = 384, image_width: int = 512,
+                       scan: str = SCAN_ID) -> str:
+    """Writes the synthetic scene (`data/synthetic.py`: the room, its
+    trajectory and intrinsics) as a ScanNet scan under `<root>/scans/<scan>`
+    (`<root>/scans_test` links to `scans`, so both splits read it):
+    `sensor_data/frame-XXXXXX.color.<W>.png` (the 8-bit pixels the
+    synthetic dataset feeds, at image_height x image_width),
+    `frame-XXXXXX.depth.png` (millimetres, 0 where nothing was hit, at 5/4
+    of the image size: 480x640 for 384x512), `frame-XXXXXX.pose.txt`,
+    `intrinsic/intrinsic_{color,depth}.txt` and `<scan>.txt`. Returns the
+    scan's directory."""
+    import os
+    from simplerecon_tpu_torch.data.synthetic import (camera_trajectory,
+                                                      make_room_mesh)
+    from simplerecon_tpu_torch.render.renderer import Renderer
+    from simplerecon_tpu_torch.utils.visualization import encode_png
+    scan_dir = os.path.join(root, "scans", scan)
+    sensor = os.path.join(scan_dir, "sensor_data")
+    intrinsic = os.path.join(scan_dir, "intrinsic")
+    os.makedirs(sensor, exist_ok=True)
+    os.makedirs(intrinsic, exist_ok=True)
+    if not os.path.exists(os.path.join(root, "scans_test")):
+        os.symlink("scans", os.path.join(root, "scans_test"))
+    depth_h, depth_w = image_height * 5 // 4, image_width * 5 // 4
+    # the synthetic dataset's intrinsics, and the same camera at the depth
+    # image's size
+    K = np.eye(4)
+    K[0, 0] = K[1, 1] = 0.9 * image_width
+    K[0, 2], K[1, 2] = image_width / 2, image_height / 2
+    K_depth = K.copy()
+    K_depth[:2] *= 1.25
+    np.savetxt(os.path.join(intrinsic, "intrinsic_color.txt"), K)
+    np.savetxt(os.path.join(intrinsic, "intrinsic_depth.txt"), K_depth)
+    with open(os.path.join(scan_dir, f"{scan}.txt"), "w") as f:
+        f.write(f"colorWidth = {image_width}\ncolorHeight = {image_height}\n"
+                f"depthWidth = {depth_w}\ndepthHeight = {depth_h}\n"
+                f"numColorFrames = {num_frames}\n"
+                f"numDepthFrames = {num_frames}\n")
+    v, faces, colors = make_room_mesh(seed=0)
+    color_renderer = Renderer(image_height, image_width)
+    depth_renderer = Renderer(depth_h, depth_w)
+    for i, world_T_cam in enumerate(camera_trajectory(num_frames)):
+        frame = os.path.join(sensor, f"frame-{i:06d}")
+        rgb, _ = color_renderer.render_mesh(v, faces, world_T_cam, K,
+                                            vert_colors=colors,
+                                            background=(0.0, 0.0, 0.0))
+        _, depth = depth_renderer.render_mesh(v, faces, world_T_cam, K_depth,
+                                              vert_colors=colors,
+                                              background=(0.0, 0.0, 0.0))
+        depth_mm = np.clip(np.round(depth * 1000.0), 0, 65535)
+        with open(f"{frame}.color.{image_width}.png", "wb") as f:
+            f.write(encode_png(rgb))
+        with open(f"{frame}.depth.png", "wb") as f:
+            f.write(encode_png(depth_mm.astype(np.uint16)))
+        np.savetxt(f"{frame}.pose.txt", world_T_cam)
+    return scan_dir
+
+
+def compare_scan_depths(scan_dir: str, synthetic_dir: str) -> dict:
+    """Asserts the `--cache_depths` pickles of the eval CLI over the
+    written ScanNet scan (frame ids `000007`) agree with those over the
+    synthetic dataset (frame ids `7`) within `EVAL_TOL`, with the same
+    intrinsics at s0 and poses. Returns the number of frames, the
+    largest relative depth difference and whether every depth and
+    lowest-cost map is the same bits."""
+    import glob
+    import os
+    import pickle
+    paths = sorted(glob.glob(os.path.join(synthetic_dir, "*.pickle")))
+    worst, same = 0.0, True
+    for path in paths:
+        with open(path, "rb") as f:
+            want = pickle.load(f)
+        frame_id = f"{int(want['frame_id']):06d}"
+        with open(os.path.join(scan_dir, f"{frame_id}.pickle"), "rb") as f:
+            got = pickle.load(f)
+        assert got["frame_id"] == frame_id
+        for key in ("K_s0_b44", "world_T_cam_b44", "cam_T_world_b44"):
+            np.testing.assert_array_equal(got[key], want[key], key)
+        for key in ("depth_pred_s0_b1hw", "lowest_cost_bhw"):
+            g, w = got[key], want[key]
+            assert g.shape == w.shape, key
+            np.testing.assert_allclose(g, w, rtol=EVAL_TOL["depth_rtol"],
+                                       atol=EVAL_TOL["depth_atol"])
+            worst = max(worst, float(np.max(np.abs(g - w) / np.abs(w))))
+            same = same and g.tobytes() == w.tobytes()
+    assert paths, synthetic_dir
+    return dict(frames=len(paths), depth_rel=worst, same_bits=same)

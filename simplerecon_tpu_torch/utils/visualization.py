@@ -3,8 +3,8 @@
 depth ranges, colormapped depth, normals from depth, the validation
 panels of the training CLI and the eval CLI's `quick_viz_export`.
 
-PNGs are written with `zlib` and `struct` (8-bit grey, RGB or RGBA, no
-filter), so no image library is needed; they hold the pixels that the
+PNGs are written with `zlib` and `struct` (8-bit grey, RGB or RGBA, or
+16-bit grey; no filter), so no image library is needed; they hold the pixels that the
 JAX package's Pillow writer gives.
 """
 
@@ -86,15 +86,19 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 
 def encode_png(pixels: np.ndarray) -> bytes:
-    """The PNG file of a uint8 image (h, w) or (h, w, 1, 3 or 4)."""
-    arr = np.asarray(pixels, np.uint8)
+    """The PNG file of an image (h, w) or (h, w, 1, 3 or 4): uint16 as
+    16-bit samples (big-endian, as PNG stores them), anything else as
+    uint8."""
+    arr = np.asarray(pixels)
+    depth = 16 if arr.dtype == np.uint16 else 8
+    arr = arr.astype(">u2") if depth == 16 else np.asarray(arr, np.uint8)
     if arr.ndim == 2:
         arr = arr[..., None]
     h, w, ch = arr.shape
-    header = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPES[ch], 0, 0, 0)
+    header = struct.pack(">IIBBBBB", w, h, depth, _COLOR_TYPES[ch], 0, 0, 0)
     # each row: filter type 0 (none), then its bytes
     rows = np.concatenate([np.zeros((h, 1), np.uint8),
-                           arr.reshape(h, w * ch)], axis=1)
+                           arr.view(np.uint8).reshape(h, -1)], axis=1)
     return (PNG_SIGNATURE + _chunk(b"IHDR", header)
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
             + _chunk(b"IEND", b""))

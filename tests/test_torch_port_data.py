@@ -11,7 +11,7 @@ same numpy, so items and batches must be equal bit for bit:
   passes frame-id strings through.
 - The train-time colour jitter and the scaled intrinsics (flipped and
   not) equal the JAX package's, bit for bit.
-The registry raises `NotImplementedError` for the readers still to port.
+The file-backed readers are held in `test_torch_port_datasets.py`.
 """
 
 import numpy as np
@@ -83,13 +83,6 @@ def test_loader_batches_are_the_jax_batches():
                     assert isinstance(got[part][key], torch.Tensor), key
                     np.testing.assert_array_equal(got[part][key].numpy(),
                                                   value)
-
-
-@pytest.mark.parametrize("name", ["scannet", "7scenes", "vdr", "arkit",
-                                  "colmap", "scanniverse"])
-def test_file_readers_wait_for_their_port(name):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        get_dataset(name)
 
 
 def test_registry_gives_the_synthetic_scene():

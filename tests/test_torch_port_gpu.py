@@ -675,3 +675,36 @@ def test_full_state_checkpoint_of_card_tensors(cuda, tmp_path):
     assert (other.step, other.optimizer.count) == (2, 2)
     assert torch.equal(other.generator.get_state(),
                        state.generator.get_state())
+
+
+def test_scannet_reader_batches_through_device_prefetch(cuda, tmp_path):
+    """The ScanNet reader's batches of a scan on disk
+    (`testing.write_scannet_scan` at 64x96, 12 frames, 4-view tuples)
+    moved to the card by `device_prefetch`: the CPU batches' values, bit
+    for bit, and the frame ids passed through."""
+    import numpy as np
+    from simplerecon_tpu_torch.data.loader import DataLoader, device_prefetch
+    from simplerecon_tpu_torch.data.scannet import ScannetDataset
+    from simplerecon_tpu_torch.testing import (TUPLE_SUFFIX, synthetic_tuples,
+                                               write_scannet_scan,
+                                               write_tuples)
+    root = str(tmp_path)
+    write_scannet_scan(root, 12, 64, 96)
+    write_tuples(root, synthetic_tuples(12, 4))
+    dataset = ScannetDataset(root, "test", TUPLE_SUFFIX, image_height=64,
+                             image_width=96, num_images_in_tuple=4,
+                             include_full_res_depth=True,
+                             include_full_depth_K=True, pass_frame_id=True)
+    batches = list(DataLoader(dataset, batch_size=4, num_workers=2))
+    moved = list(device_prefetch(batches, cuda))
+    assert len(moved) == len(batches) == 3
+    for got, want in zip(moved, batches):
+        for part in ("cur", "src"):
+            assert list(got[part]) == list(want[part])
+            for key, value in want[part].items():
+                if isinstance(value, np.ndarray):
+                    assert got[part][key].device.type == "cuda", key
+                    np.testing.assert_array_equal(
+                        got[part][key].cpu().numpy(), value)
+                else:
+                    assert got[part][key] == value, key
