@@ -153,10 +153,32 @@ non-zero, and only a run that passes them all prints the last line:
    the train type, then `scripts/train.py --dataset scannet` at full
    width for 4 steps (batch 16, or the scan's tuple count when fewer):
    K1, K2 and the scatter once a step, no other kernel and no plain
-   sweep, finite losses.
-Phases 7, 12 and 23 end with two forward-and-backward passes from one
-state whose gradients must be the same bits. The run prints the time of
-phases 20-23, of phases 24-27 and its total.
+   sweep, finite losses;
+28. the hero model with the UNet matching encoder
+   (`--matching_encoder_type unet_encoder`: mnasnet_100 and an FPN) at
+   full width: the 12-frame stream through `OnlineSession` (K1 once an
+   answer, nothing else; b1 ms), three b16 bf16 training steps (K1, K2
+   and the scatter once a step; finite losses; step ms), two passes from
+   one state with the same gradient bits, and card against CPU at
+   192x256 float32 as phase 5;
+29. `scripts/pc_fusion.py` as a user runs it: the hero YAML on the
+   48-frame scene (41 tuples in batches of 16, 16, 9; K1 once a batch,
+   nothing else), fusion thresholds loosened to 0.5 m and one agreeing
+   frame (random weights predict rough depths), a PLY with points; the
+   same predicted depths through the consistency pass on the card and
+   on the CPU: keep masks differing at no more than 1e-4 of the pixels,
+   voxel clouds of sizes within 0.1%; the pass's ms by CUDA events;
+30. `scripts/visualize_live_meshing.py` on the same scene at b1 into a
+   fresh directory (no cached depth): K1 once a keyframe (41), two mp4s
+   that OpenCV reads back with one frame a keyframe that has a mesh,
+   frames in [0, 1]; ms a keyframe;
+31. `scripts/generate_gt_min_max_cache.py`, then
+   `scripts/visualize_scene_depth_output.py` over phase 17's cached
+   depths: no kernel, 41 frames whose sides are multiples of 16, an mp4
+   that reads back.
+Phases 7, 12, 23 and 28 end with two forward-and-backward passes from
+one state whose gradients must be the same bits. The run prints the
+time of phases 20-23, of phases 24-27, of phases 28-31 and its total.
 
 The line before the last is the kernel report as JSON (the seven
 kernels that replace the TPU kernels, the scatter that sums K2's d_src
@@ -204,6 +226,16 @@ from simplerecon_tpu_torch.fusion.fusers import OurFuser  # noqa: E402
 from simplerecon_tpu_torch.fusion.mesh import read_ply  # noqa: E402
 from simplerecon_tpu_torch.options import OptionsHandler  # noqa: E402
 from simplerecon_tpu_torch.scripts import determinism  # noqa: E402
+from simplerecon_tpu_torch.fusion import point_cloud  # noqa: E402
+from simplerecon_tpu_torch.models.matching_encoder import \
+    UNetMatchingEncoder  # noqa: E402
+from simplerecon_tpu_torch.scripts import \
+    generate_gt_min_max_cache  # noqa: E402
+from simplerecon_tpu_torch.scripts import pc_fusion  # noqa: E402
+from simplerecon_tpu_torch.scripts import \
+    visualize_live_meshing as live_meshing  # noqa: E402
+from simplerecon_tpu_torch.scripts import \
+    visualize_scene_depth_output as depth_video  # noqa: E402
 from simplerecon_tpu_torch.scripts import generate_tuples  # noqa: E402
 from simplerecon_tpu_torch.scripts import test as eval_cli  # noqa: E402
 from simplerecon_tpu_torch.scripts import grand_loop  # noqa: E402
@@ -2220,6 +2252,205 @@ def phase_scan_train(device) -> dict:
                 loader_s=stats["loader_seconds"])
 
 
+def phase_unet(device) -> dict:
+    """The hero model with the UNet matching encoder at full width:
+    served (K1 once an answer), trained three b16 bf16 steps (K1, K2 and
+    the scatter once a step), two passes from one state with the same
+    gradient bits, and card against CPU at 192x256 float32."""
+    opts = hero_options(matching_encoder_type="unet_encoder")
+    model = build_depth_model(opts, device=device, seed=0)
+    assert isinstance(model.matching_model, UNetMatchingEncoder)
+    assert model.compute_dtype == torch.bfloat16
+    answers, latencies, served = serve(opts, model, "unet")
+    assert_launches(served, {"K1": len(answers)})
+    del model
+    torch.cuda.empty_cache()
+
+    model = build_depth_model(opts, device=device, seed=0)
+    optimizer = train.make_optimizer(opts, model)
+    batch = train.batch_to_device(train_batch(opts, TRAIN_BATCH, seed=7),
+                                  device)
+    steps = 3
+    reset_launches()
+    losses, norms, step_ms = _run_steps(model, optimizer, batch,
+                                        torch.Generator().manual_seed(0),
+                                        steps)
+    trained = launches()
+    assert_launches(trained, {"K1": steps, "K2": steps, "scatter": steps})
+    assert all(np.isfinite(losses)) and all(np.isfinite(norms)), (losses,
+                                                                  norms)
+    print(f"[unet] b{TRAIN_BATCH} bf16, {steps} steps: launches {trained};"
+          f" " + _series(losses, norms) + "; step ms "
+          + ", ".join(f"{x:.2f}" for x in step_ms)
+          + f"; b1 request ms median {statistics.median(latencies):.2f}")
+    assert_repeatable(model, batch, "unet")
+    del model, optimizer, batch
+    torch.cuda.empty_cache()
+    phase_card_vs_cpu(device, hero_options(
+        image_height=192, image_width=256, precision="32",
+        matching_encoder_type="unet_encoder"), "unet_card_vs_cpu")
+    return dict(served=served, trained=trained,
+                b1_ms=statistics.median(latencies),
+                step_ms=statistics.median(step_ms[1:]))
+
+
+PC_OUT = "build/pc_fusion_out"
+LIVE_OUT = "build/live_meshing_out"
+
+
+def read_video_frames(path: str) -> int:
+    """The frames OpenCV decodes from the video at `path`."""
+    import cv2
+    cap = cv2.VideoCapture(path)
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    return n
+
+
+def phase_pc_fusion(device) -> dict:
+    """`scripts/pc_fusion.py` on the 48-frame scene with the hero YAML,
+    then its predicted depths through the consistency pass on the card
+    and on the CPU."""
+    shutil.rmtree(PC_OUT, ignore_errors=True)
+    opts = eval_options(PC_OUT, "--pc_fusion_z_thresh", "0.5",
+                        "--n_consistent_thresh", "1")
+    assert_hero_full_width(opts)
+    captured = {}
+    fuse = pc_fusion.process_scene
+
+    def keep_inputs(*args, **kw):
+        captured.update(args=args, kw=kw)
+        return fuse(*args, **kw)
+
+    pc_fusion.process_scene = keep_inputs
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        stats = pc_fusion.main(opts)
+        total = time.perf_counter() - t0
+        counts = launches()
+    finally:
+        pc_fusion.process_scene = fuse
+    assert (stats["frames"], stats["batches"]) == (41, 3), stats
+    assert_launches(counts, {"K1": 3})
+    verts, faces = read_ply(stats["plys"]["scene"])
+    assert len(verts) == stats["points"]["scene"] > 0 and len(faces) == 0
+    assert np.isfinite(verts).all()
+
+    depths, poses, Ks, invKs = captured["args"][:4]
+    kw = captured["kw"]
+    clouds, keeps = {}, {}
+    for tag, dev in (("gpu", device), ("cpu", "cpu")):
+        passes = point_cloud.fuse_points(
+            depths, poses, Ks, invKs, z_thresh=kw["z_thresh"],
+            n_consistent=kw["n_consistent"], device=dev)
+        keeps[tag] = np.stack([keep for _, keep in passes])
+        clouds[tag] = point_cloud.voxel_downsample(
+            np.concatenate([pts[keep] for pts, keep in passes]),
+            kw["voxel_downsample_size"])[0]
+    differ = float((keeps["gpu"] != keeps["cpu"]).mean())
+    n_gpu, n_cpu = len(clouds["gpu"]), len(clouds["cpu"])
+    assert n_gpu == stats["points"]["scene"], (n_gpu, stats["points"])
+    pass_ms = stats["pass_ms"]
+    assert len(pass_ms) == depths.shape[0] == 41, len(pass_ms)
+    print(f"[pc_fusion] hero b{opts.batch_size} bf16 384x512, "
+          f"{stats['frames']} frames in {stats['batches']} batches; "
+          f"launches {counts}; {n_gpu} fused points (kept "
+          f"{int(keeps['gpu'].sum())} of {keeps['gpu'].size} pixels); "
+          f"consistency pass ms by CUDA events median "
+          f"{statistics.median(pass_ms):.3f} (first {pass_ms[0]:.3f}, "
+          f"{len(pass_ms)} passes over {depths.shape[0]} frames of "
+          f"{depths.shape[1]}x{depths.shape[2]}); forward "
+          f"{stats['forward_s']:.2f} s, fusion {stats['fusion_s']:.2f} s, "
+          f"total {total:.2f} s; card against CPU: keep masks differ at "
+          f"{differ:.2e} of pixels, clouds {n_gpu} and {n_cpu} points")
+    assert differ <= 1e-4, differ
+    assert abs(n_gpu - n_cpu) <= 1e-3 * n_cpu, (n_gpu, n_cpu)
+    return dict(launches=counts, total=total,
+                pass_ms=statistics.median(pass_ms))
+
+
+def phase_live_meshing(device) -> dict:
+    """`scripts/visualize_live_meshing.py` on the 48-frame scene at b1
+    into a fresh directory: K1 once a keyframe, two videos that read
+    back."""
+    shutil.rmtree(LIVE_OUT, ignore_errors=True)
+    opts = eval_options(LIVE_OUT)
+    assert_hero_full_width(opts)
+    ranges = []
+    write = live_meshing.write_video
+
+    def keep_ranges(path, frames, fps=30):
+        ranges.append((min(float(f.min()) for f in frames),
+                       max(float(f.max()) for f in frames)))
+        return write(path, frames, fps=fps)
+
+    live_meshing.write_video = keep_ranges
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        stats = live_meshing.main(opts)
+        total = time.perf_counter() - t0
+        counts = launches()
+    finally:
+        live_meshing.write_video = write
+    assert (stats["keyframes"], stats["forwards"], stats["cached"]) == (
+        41, 41, 0), stats
+    assert_launches(counts, {"K1": 41})
+    frames = stats["frames"]["scene"]
+    videos = stats["videos"]["scene"]
+    decoded = [read_video_frames(path) for path in videos]
+    keyframe_ms = [x * 1e3 for x in stats["keyframe_s"]]
+    print(f"[live_meshing] hero b1 bf16 384x512, {stats['keyframes']} "
+          f"keyframes; launches {counts}; {frames} frames with a mesh; "
+          f"videos {videos} decode to {decoded} frames; value ranges "
+          f"{ranges}; ms a keyframe median "
+          f"{statistics.median(keyframe_ms):.1f} (first "
+          f"{keyframe_ms[0]:.1f}); total {total:.2f} s")
+    assert frames > 0 and all(v.endswith(".mp4") for v in videos)
+    assert decoded == [frames, frames], (decoded, frames)
+    assert all(0.0 <= lo and hi <= 1.0 for lo, hi in ranges), ranges
+    return dict(launches=counts, total=total,
+                keyframe_ms=statistics.median(keyframe_ms))
+
+
+def phase_depth_video(device) -> dict:
+    """The GT min/max cache, then `scripts/visualize_scene_depth_output.py`
+    over phase 17's cached depths: no kernel, 41 frames with sides that
+    are multiples of 16, a video that reads back."""
+    opts = eval_options(EVAL_OUT)
+    shapes = []
+    write = depth_video.write_video
+
+    def keep_shapes(path, frames, fps=30):
+        shapes.extend({f.shape for f in frames})
+        return write(path, frames, fps=fps)
+
+    depth_video.write_video = keep_shapes
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        generate_gt_min_max_cache.main(opts)
+        written = depth_video.main(opts)
+        total = time.perf_counter() - t0
+        counts = launches()
+    finally:
+        depth_video.write_video = write
+    assert_launches(counts, {})
+    frames, path = written["scene"]
+    decoded = read_video_frames(path)
+    print(f"[depth_video] {frames} frames of {shapes} from "
+          f"{eval_results(opts)}/depths/scene -> {path}, {decoded} decoded;"
+          f" launches {counts}; total {total:.2f} s")
+    assert frames == 41 and decoded == 41, (frames, decoded)
+    assert shapes and all(h % 16 == 0 and w % 16 == 0 for h, w, _ in shapes)
+    return dict(launches=counts, total=total)
+
+
 def kernel_entry(name, source, replaces, launches_on_path, measured) -> dict:
     bound, bound_by = measured["bound"]
     return {"name": name, "route": "cuda", "source": source,
@@ -2273,8 +2504,14 @@ def main():
     scan_eval = phase_scan_eval(device, eval_run)
     phase_scan_gt_fusion(device, gt_fusion["f1"])
     scan_train = phase_scan_train(device)
-    print(f"[summary] phases 24-27 took {time.perf_counter() - t_scan:.1f} s"
+    t_viz = time.perf_counter()
+    print(f"[summary] phases 24-27 took {t_viz - t_scan:.1f} s"
           f" (phases 20-23 {t_scan - t_new:.1f} s)")
+    unet = phase_unet(device)
+    pc_run = phase_pc_fusion(device)
+    live_run = phase_live_meshing(device)
+    phase_depth_video(device)
+    print(f"[summary] phases 28-31 took {time.perf_counter() - t_viz:.1f} s")
     loaded = [m for m in sys.modules if m in ("jax", "flax", "yaml", "PIL")
               or m == "simplerecon_tpu" or m.startswith("simplerecon_tpu.")]
     assert not loaded, f"the port pulled in {loaded}"
@@ -2300,7 +2537,13 @@ def main():
           f"{train_run['total']:.1f} s. file-backed eval CLI: K1 "
           f"{scan_eval['launches']['K1']}, total {scan_eval['total']:.1f} s;"
           f" file-backed training CLI: {scan_train['launches']}, total "
-          f"{scan_train['total']:.1f} s. run total "
+          f"{scan_train['total']:.1f} s. UNet hero: served "
+          f"{unet['served']}, b1 {unet['b1_ms']:.2f} ms; trained "
+          f"{unet['trained']}, step {unet['step_ms']:.1f} ms. pc_fusion: "
+          f"K1 {pc_run['launches']['K1']}, pass {pc_run['pass_ms']:.3f} ms,"
+          f" total {pc_run['total']:.1f} s. live meshing: K1 "
+          f"{live_run['launches']['K1']}, {live_run['keyframe_ms']:.1f} ms "
+          f"a keyframe, total {live_run['total']:.1f} s. run total "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         kernel_entry("fused_sweep_mlp",

@@ -1,6 +1,7 @@
 """The SimpleRecon depth model (counterpart of
 `simplerecon_tpu/models/depth_model.py`): EfficientNetV2-S image prior,
-ResNet matching encoder, a metadata-MLP feature volume (the hero model)
+ResNet matching encoder (or, with `matching_encoder_type="unet_encoder"`,
+the mnasnet + FPN one), a metadata-MLP feature volume (the hero model)
 or a dot-product cost volume (the dot-product model), CV encoder and
 UNet++ decoder. The forward serves inference (`model.eval()`, usually
 under `torch.no_grad()`) and training (`model.train()`: batch norms use
@@ -30,8 +31,8 @@ from simplerecon_tpu_torch.models.cost_volume import (DotProductCostVolume,
                                                       MLPFeatureVolume)
 from simplerecon_tpu_torch.models.decoders import CVEncoder, DepthDecoderPP
 from simplerecon_tpu_torch.models.efficientnet import EfficientNetV2Features
-from simplerecon_tpu_torch.models.matching_encoder import \
-    ResnetMatchingEncoder
+from simplerecon_tpu_torch.models.matching_encoder import (
+    ResnetMatchingEncoder, UNetMatchingEncoder)
 
 # cost_volume_backend values of the JAX package and the hero model's sweep
 # each selects in the port: the fused sweep kernel K1 (with K2 as its
@@ -58,13 +59,17 @@ def resolve_device(device=None) -> torch.device:
 
 
 FEATURE_VOLUME_TYPES = ("mlp_feature_volume", "simple_cost_volume")
+MATCHING_ENCODER_TYPES = ("resnet", "unet_encoder")
 
 
 class DepthModel(nn.Module):
     """SimpleRecon depth network: the hero model
     (`feature_volume_type="mlp_feature_volume"`, its feature volume's
     backend `hero_sweep`) or the dot-product model
-    ("simple_cost_volume")."""
+    ("simple_cost_volume"), with the matching encoder
+    `matching_encoder_type` ("resnet" or "unet_encoder"; the UNet
+    encoder ignores `matching_norm` and `matching_pool_impl`, as the JAX
+    package's does)."""
 
     def __init__(self, matching_scale: int = 1,
                  matching_num_depth_bins: int = 64,
@@ -76,19 +81,27 @@ class DepthModel(nn.Module):
                  model_num_views: int = 8,
                  feature_volume_type: str = "mlp_feature_volume",
                  compute_dtype: torch.dtype = torch.float32,
-                 hero_sweep: str = "fused_sweep"):
+                 hero_sweep: str = "fused_sweep",
+                 matching_encoder_type: str = "resnet"):
         super().__init__()
         if feature_volume_type not in FEATURE_VOLUME_TYPES:
             raise ValueError(
                 f"unknown feature_volume_type {feature_volume_type!r}")
+        if matching_encoder_type not in MATCHING_ENCODER_TYPES:
+            raise ValueError(
+                f"unknown matching_encoder_type {matching_encoder_type!r}")
         if matching_scale != 1:
             raise NotImplementedError("only matching_scale=1 is ported")
         self.matching_scale = matching_scale
         self.compute_dtype = compute_dtype
         self.encoder = EfficientNetV2Features()
-        self.matching_model = ResnetMatchingEncoder(
-            num_ch_out=matching_feature_dims, norm=matching_norm,
-            pool_impl=matching_pool_impl)
+        if matching_encoder_type == "unet_encoder":
+            self.matching_model = UNetMatchingEncoder(
+                num_ch_out=matching_feature_dims)
+        else:
+            self.matching_model = ResnetMatchingEncoder(
+                num_ch_out=matching_feature_dims, norm=matching_norm,
+                pool_impl=matching_pool_impl)
         if feature_volume_type == "simple_cost_volume":
             self.cost_volume = DotProductCostVolume(
                 num_depth_bins=matching_num_depth_bins,
@@ -216,10 +229,6 @@ def build_depth_model(opts, device=None, seed: int = 0) -> DepthModel:
     """
     from simplerecon_tpu_torch.utils.weights import init_random_
 
-    if opts.matching_encoder_type != "resnet":
-        raise NotImplementedError(
-            f"matching_encoder_type={opts.matching_encoder_type!r} is not "
-            "ported (ROADMAP Queue 1, item 6)")
     backend = getattr(opts, "cost_volume_backend", "xla_fused")
     if backend not in HERO_SWEEPS:
         raise ValueError(f"unknown cost_volume_backend {backend!r}")
@@ -234,6 +243,7 @@ def build_depth_model(opts, device=None, seed: int = 0) -> DepthModel:
         matching_pool_impl=getattr(opts, "matching_pool_impl", "reference"),
         model_num_views=opts.model_num_views,
         feature_volume_type=opts.feature_volume_type,
-        compute_dtype=_compute_dtype(opts), hero_sweep=HERO_SWEEPS[backend])
+        compute_dtype=_compute_dtype(opts), hero_sweep=HERO_SWEEPS[backend],
+        matching_encoder_type=opts.matching_encoder_type)
     init_random_(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

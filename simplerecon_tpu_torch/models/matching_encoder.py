@@ -1,5 +1,9 @@
-"""ResNet matching encoder (counterpart of
-`simplerecon_tpu/models/matching_encoder.py::ResnetMatchingEncoder`).
+"""Matching encoders (counterparts of
+`simplerecon_tpu/models/matching_encoder.py`): the ResNet encoder
+(`ResnetMatchingEncoder`, the default) and the mnasnet + FPN encoder
+(`UNetMatchingEncoder`, `matching_encoder_type="unet_encoder"`).
+
+`ResnetMatchingEncoder`:
 
     net.0 7x7/2 conv -> net.1 norm (eps 1e-5) -> ReLU ->
     net.3 max-pool 2x2/1 + BlurPool(4-tap, reflect pad (1,2,1,2), stride 2),
@@ -18,6 +22,7 @@ indices are the reference state_dict's.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -130,3 +135,168 @@ class ResnetMatchingEncoder(nn.Module):
 
     def forward(self, image_b3hw: torch.Tensor) -> torch.Tensor:
         return self.net(image_b3hw)
+
+
+class MnasDsConv(nn.Module):
+    """timm's DepthwiseSeparableConv (mnasnet `blocks.0.0`): depthwise
+    3x3/1 -> BN -> ReLU -> pointwise 1x1 -> BN, no skip."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.conv_dw = nn.Conv2d(cin, cin, 3, padding=1, groups=cin,
+                                 bias=False)
+        self.bn1 = BatchNorm2d(cin, eps=1e-5)
+        self.conv_pw = nn.Conv2d(cin, cout, 1, bias=False)
+        self.bn2 = BatchNorm2d(cout, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.bn2(self.conv_pw(F.relu(self.bn1(self.conv_dw(x)))))
+
+
+class MnasIR(nn.Module):
+    """timm's InvertedResidual as mnasnet_100 uses it: pointwise expand
+    -> BN -> ReLU -> depthwise kxk/stride -> BN -> ReLU -> pointwise
+    linear -> BN, plus the input when the stride is 1 and the channels
+    match."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int,
+                 exp_ratio: int):
+        super().__init__()
+        mid = cin * exp_ratio
+        self.skip = stride == 1 and cin == cout
+        self.conv_pw = nn.Conv2d(cin, mid, 1, bias=False)
+        self.bn1 = BatchNorm2d(mid, eps=1e-5)
+        self.conv_dw = nn.Conv2d(mid, mid, kernel, stride=stride,
+                                 padding=kernel // 2, groups=mid, bias=False)
+        self.bn2 = BatchNorm2d(mid, eps=1e-5)
+        self.conv_pwl = nn.Conv2d(mid, cout, 1, bias=False)
+        self.bn3 = BatchNorm2d(cout, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.relu(self.bn1(self.conv_pw(x)))
+        h = F.relu(self.bn2(self.conv_dw(h)))
+        h = self.bn3(self.conv_pwl(h))
+        return h + x if self.skip else h
+
+
+# mnasnet_b1 (timm `_gen_mnasnet_b1`): each stage's (repeats, kernel,
+# stride, expansion, out channels); stage 0 is the depthwise-separable
+# block
+MNASNET_B1_STAGES = (
+    (3, 3, 2, 3, 24),    # blocks.1 -> feat_1 (stride 4)
+    (3, 5, 2, 3, 40),    # blocks.2 -> feat_2 (stride 8)
+    (3, 5, 2, 6, 80),    # blocks.3
+    (2, 3, 1, 6, 96),    # blocks.4 -> feat_3 (stride 16)
+    (4, 5, 2, 6, 192),   # blocks.5
+    (1, 3, 1, 6, 320),   # blocks.6 -> feat_4 (stride 32)
+)
+# the stages whose outputs are timm's feature levels 1-4
+FEATURE_STAGES = (1, 2, 4, 6)
+
+
+class MnasNet(nn.Module):
+    """mnasnet_100's features: `conv_stem`, `bn1`, `blocks.{s}.{b}`
+    (timm's state-dict names). Returns the levels at strides 2-32
+    (16, 24, 40, 96, 320 channels)."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv_stem = nn.Conv2d(3, 32, 3, stride=2, padding=1,
+                                   bias=False)
+        self.bn1 = BatchNorm2d(32, eps=1e-5)
+        stages = [nn.Sequential(MnasDsConv(32, 16))]
+        cin = 16
+        for repeats, k, stride, exp, cout in MNASNET_B1_STAGES:
+            blocks = []
+            for b in range(repeats):
+                blocks.append(MnasIR(cin, cout, k, stride if b == 0 else 1,
+                                     exp))
+                cin = cout
+            stages.append(nn.Sequential(*blocks))
+        self.blocks = nn.Sequential(*stages)
+
+    def forward(self, x: torch.Tensor) -> list:
+        x = self.blocks[0](F.relu(self.bn1(self.conv_stem(x))))
+        feats = [x]
+        for s in range(1, len(self.blocks)):
+            x = self.blocks[s](x)
+            if s in FEATURE_STAGES:
+                feats.append(x)
+        return feats
+
+
+def upsample_nearest_to(x: torch.Tensor, size) -> torch.Tensor:
+    """`x` (b, c, h, w) resized to `size` by nearest neighbour as
+    `jax.image.resize(..., "nearest")` picks: source index floor((i +
+    0.5) * in / out), in float32 as XLA evaluates it, the factor folded
+    to in * (1 / out) (neither torch's "nearest" nor its "nearest-exact"
+    picks these pixels at every size). An exact 2x is a 2x2 pixel
+    repeat, whose backward is a fixed-order sum; other sizes gather."""
+    h, w = x.shape[-2:]
+    if tuple(size) == (2 * h, 2 * w):
+        b, c = x.shape[:2]
+        return x[:, :, :, None, :, None].expand(b, c, h, 2, w, 2
+                                                ).reshape(b, c, 2 * h, 2 * w)
+    for dim, (m, n) in ((2, (h, size[0])), (3, (w, size[1]))):
+        if m != n:
+            f32 = np.float32
+            factor = f32(m) * (f32(1) / f32(n))
+            src = np.floor((np.arange(n, dtype=f32) + f32(0.5)) * factor)
+            x = x.index_select(dim, torch.as_tensor(
+                src.astype(np.int64), device=x.device))
+    return x
+
+
+class FPNTopDown(nn.Module):
+    """The top-down path of torchvision 0.11's
+    `FeaturePyramidNetwork(in_channels_list=[16, 24, 40, 96, 320],
+    out_channels)` to the stride-4 level: the lateral 1x1 convs
+    `inner_blocks.{1..4}` and the 3x3 output conv `layer_blocks.1`. The
+    reference's other levels (`inner_blocks.0`, `layer_blocks.{0,2,3,4}`)
+    feed outputs that the model never reads: a state dict's entries for
+    them are dropped on load."""
+
+    UNUSED = ("inner_blocks.0.", "layer_blocks.0.", "layer_blocks.2.",
+              "layer_blocks.3.", "layer_blocks.4.")
+
+    def __init__(self, in_channels=(16, 24, 40, 96, 320),
+                 out_channels: int = 32):
+        super().__init__()
+        self.inner_blocks = nn.ModuleDict(
+            {str(i): nn.Conv2d(in_channels[i], out_channels, 1)
+             for i in (1, 2, 3, 4)})
+        self.layer_blocks = nn.ModuleDict(
+            {"1": nn.Conv2d(out_channels, out_channels, 3, padding=1)})
+        self.register_load_state_dict_pre_hook(self._drop_unused)
+
+    def _drop_unused(self, module, state_dict, prefix, *args):
+        for key in [k for k in state_dict if k.startswith(prefix)
+                    and k[len(prefix):].startswith(self.UNUSED)]:
+            del state_dict[key]
+
+    def forward(self, feats: list) -> torch.Tensor:
+        last = self.inner_blocks["4"](feats[4])
+        for idx in (3, 2, 1):
+            lateral = self.inner_blocks[str(idx)](feats[idx])
+            last = lateral + upsample_nearest_to(last, lateral.shape[-2:])
+        return self.layer_blocks["1"](last)
+
+
+class UNetMatchingEncoder(nn.Module):
+    """mnasnet_100 + FPN matching encoder (the reference's
+    `modules/networks.py:207-228`) -> `num_ch_out` features at 1/4
+    resolution: `encoder` (mnasnet), `decoder` (the FPN's top-down path,
+    32 channels), `outconv` (LeakyReLU(0.2), 1x1 conv, InstanceNorm in
+    float32), named as the reference state dict."""
+
+    def __init__(self, num_ch_out: int = 16, fpn_channels: int = 32):
+        super().__init__()
+        self.encoder = MnasNet()
+        self.decoder = FPNTopDown(out_channels=fpn_channels)
+        self.outconv = nn.Sequential(
+            nn.LeakyReLU(0.2),
+            nn.Conv2d(fpn_channels, num_ch_out, 1),
+            InstanceNorm32())
+
+    def forward(self, image_b3hw: torch.Tensor) -> torch.Tensor:
+        return self.outconv(self.decoder(self.encoder(image_b3hw)))

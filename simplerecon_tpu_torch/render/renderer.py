@@ -1,7 +1,8 @@
 """Mesh renderer over the native rasterizer (counterpart of
 `simplerecon_tpu/render/renderer.py`): `Renderer(height,
 width).render_mesh(verts, faces, world_T_cam, K, ...)` returns an
-(h, w, 3) uint8 image and a depth map.
+(h, w, 3) uint8 image and a depth map; `SmoothBirdsEyeCamera` follows a
+camera path from above.
 """
 
 from __future__ import annotations
@@ -79,3 +80,49 @@ class Renderer:
             rgb.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
             depth.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
         return rgb, depth
+
+
+class SmoothBirdsEyeCamera:
+    """Exponentially smoothed overhead follow camera: tracks the FPV
+    camera's position with smoothing `alpha` and looks down at it from
+    `height_above` metres up the gravity axis (`up_axis`, pointing
+    down)."""
+
+    def __init__(self, height_above: float = 4.0, alpha: float = 0.05,
+                 up_axis: int = 1):
+        self.height_above = height_above
+        self.alpha = alpha
+        self.up_axis = up_axis
+        self._smoothed: Optional[np.ndarray] = None
+
+    def get_bird_eye_trans(self, fpv_world_T_cam: np.ndarray
+                           ) -> np.ndarray:
+        """The bird's-eye camera's (4, 4) float64 world_T_cam for the next
+        FPV pose."""
+        target = np.asarray(fpv_world_T_cam, np.float64)[:3, 3]
+        if self._smoothed is None:
+            self._smoothed = target.copy()
+        else:
+            self._smoothed = (1 - self.alpha) * self._smoothed \
+                + self.alpha * target
+        eye = self._smoothed.copy()
+        eye[self.up_axis] -= self.height_above
+
+        # look at the target; x orthogonal to the world's up
+        z = target - eye
+        z = z / max(np.linalg.norm(z), 1e-9)
+        up = np.zeros(3)
+        up[(self.up_axis + 2) % 3] = 1.0
+        x = np.cross(up, z)
+        if np.linalg.norm(x) < 1e-6:
+            up = np.zeros(3)
+            up[(self.up_axis + 1) % 3] = 1.0
+            x = np.cross(up, z)
+        x = x / max(np.linalg.norm(x), 1e-9)
+        y = np.cross(z, x)
+        world_T_cam = np.eye(4)
+        world_T_cam[:3, 0] = x
+        world_T_cam[:3, 1] = y
+        world_T_cam[:3, 2] = z
+        world_T_cam[:3, 3] = eye
+        return world_T_cam

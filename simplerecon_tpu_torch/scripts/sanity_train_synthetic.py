@@ -15,7 +15,11 @@ statistics. `--matching_norm group` puts GroupNorm-8 in the matching
 stem.
 
     python -m simplerecon_tpu_torch.scripts.sanity_train_synthetic \
-        [--steps 1200] [--batch 4] [--matching_norm batch|group]
+        [--steps 1200] [--batch 4] [--matching_norm batch|group] \
+        [--seed 0] [--precision bf16|32]
+
+`--seed` draws the initial weights and seeds the loader; the flip coin's
+generator takes `--seed` + 1.
 
 Runs on the CUDA card; `main(argv, device="cpu")` runs on the CPU.
 """
@@ -43,6 +47,7 @@ def make_opts(args) -> Options:
     opts.batch_size = args.batch
     opts.lr = 3e-4
     opts.matching_norm = args.matching_norm
+    opts.precision = "16" if args.precision == "bf16" else "32"
     return opts
 
 
@@ -118,9 +123,12 @@ def main(argv=None, device=None):
     ap.add_argument("--bn_recal", type=int, default=0)
     ap.add_argument("--matching_norm", default="batch",
                     choices=["batch", "group"])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--precision", default="bf16", choices=["bf16", "32"])
     args = ap.parse_args(argv)
     print(f"config: steps={args.steps} batch={args.batch} "
-          f"norm={args.matching_norm} bn_recal={args.bn_recal}", flush=True)
+          f"norm={args.matching_norm} bn_recal={args.bn_recal} "
+          f"seed={args.seed} precision={args.precision}", flush=True)
 
     device = resolve_device(device)
     opts = make_opts(args)
@@ -130,11 +138,11 @@ def main(argv=None, device=None):
                                num_images_in_tuple=4)
     loader = DataLoader(dataset, batch_size=opts.batch_size, shuffle=True,
                         num_workers=2, drop_last=True,
-                        adapter=to_train_schema, seed=0)
+                        adapter=to_train_schema, seed=args.seed)
 
-    model = build_depth_model(opts, device=device, seed=0)
+    model = build_depth_model(opts, device=device, seed=args.seed)
     optimizer = train_lib.make_optimizer(opts, model)
-    generator = torch.Generator().manual_seed(1)
+    generator = torch.Generator().manual_seed(args.seed + 1)
 
     batches = []   # a small fixed evaluation set
     for batch in device_prefetch(loader, device):

@@ -112,12 +112,13 @@ def validate(state, val_loader, opts: Options, device, logger, step: int,
     return float(np.mean(val_losses)) if val_losses else None
 
 
-def main(opts: Options, device=None):
+def main(opts: Options, device=None, on_step=None):
     """Trains the model of `opts` on `device` (the CUDA card unless
-    another is given) to `opts.max_steps`. Returns the `TrainState`,
-    with `run_stats`: the host seconds of each step, of each loader wait,
-    of each validation and each checkpoint write, the card's peak
-    memory (bytes) and the steps run."""
+    another is given) to `opts.max_steps`; `on_step(state, batch,
+    metrics)`, when given, is called after each step. Returns the
+    `TrainState`, with `run_stats`: the host seconds of each step, of
+    each loader wait, of each validation and each checkpoint write, the
+    card's peak memory (bytes) and the steps run."""
     device = resolve_device(device)
     np.random.seed(opts.random_seed)
     log_dir = os.path.join(opts.log_dir, opts.name)
@@ -171,6 +172,8 @@ def main(opts: Options, device=None):
             state.step += 1
             stats["loader_seconds"].append(t1 - t0)
             stats["step_seconds"].append(time.perf_counter() - t1)
+            if on_step is not None:
+                on_step(state, batch, metrics)
 
             if state.step % opts.log_interval == 0:
                 metrics = {k: float(v) for k, v in metrics.items()}

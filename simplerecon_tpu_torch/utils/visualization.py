@@ -1,7 +1,8 @@
 """Visualization on the host with numpy (counterpart of
 `simplerecon_tpu/utils/visualization.py`): the turbo colormap, robust
 depth ranges, colormapped depth, normals from depth, the validation
-panels of the training CLI and the eval CLI's `quick_viz_export`.
+panels of the training CLI, the eval CLI's `quick_viz_export` and
+`write_video` (mp4 through OpenCV, imported when called, else PNGs).
 
 PNGs are written with `zlib` and `struct` (8-bit grey, RGB or RGBA, or
 16-bit grey; no filter), so no image library is needed; they hold the pixels that the
@@ -156,6 +157,29 @@ def quick_viz_export(viz_path: str, outputs: Dict, cur_data: Dict,
             os.path.join(viz_path, f"{prefix}lowest_cost.png"),
             colormap_image(lc, vmin, vmax)))
     return written
+
+
+def write_video(path: str, frames01: List[np.ndarray], fps: int = 30
+                ) -> str:
+    """Writes frames in [0, 1] ((h, w, 3) RGB) as an mp4 through OpenCV
+    when it imports and writes; otherwise as a PNG sequence in the
+    directory `path` without its extension. Returns what it wrote."""
+    try:
+        import cv2
+        h, w = frames01[0].shape[:2]
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"),
+                                 fps, (w, h))
+        for f in frames01:
+            bgr = (np.clip(f, 0, 1)[..., ::-1] * 255).astype(np.uint8)
+            writer.write(bgr)
+        writer.release()
+        return path
+    except Exception:
+        base = os.path.splitext(path)[0]
+        os.makedirs(base, exist_ok=True)
+        for i, f in enumerate(frames01):
+            save_image(os.path.join(base, f"{i:06d}.png"), f)
+        return base
 
 
 def _resize_nearest_np(img_hwc: np.ndarray, h: int, w: int) -> np.ndarray:

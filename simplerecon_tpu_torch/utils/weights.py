@@ -55,9 +55,21 @@ def _block_leaf(leaf: str) -> str:
     return "downsample.0" if leaf == "downsample_conv" else leaf
 
 
-def _torch_prefix(path: Tuple[str, ...]) -> str:
-    """Reference state_dict prefix of the JAX leaf module at `path`."""
+def _torch_prefix(path: Tuple[str, ...], unet: bool = False) -> str:
+    """Reference state_dict prefix of the JAX leaf module at `path`;
+    `unet`: the matching model is the `UNetMatchingEncoder`."""
     top, rest = path[0], path[1:]
+    if top == "matching_model" and unet:
+        fixed = {"conv_stem": "encoder.conv_stem", "bn1": "encoder.bn1",
+                 "layer_1": "decoder.layer_blocks.1", "outconv": "outconv.1"}
+        if rest[0] in fixed:
+            return f"matching_model.{fixed[rest[0]]}"
+        inner = re.fullmatch(r"inner_(\d)", rest[0])
+        if inner:
+            return f"matching_model.decoder.inner_blocks.{inner.group(1)}"
+        blk = re.fullmatch(r"blocks_(\d)_(\d)", rest[0])
+        return (f"matching_model.encoder.blocks.{blk.group(1)}."
+                f"{blk.group(2)}.{rest[1]}")
     if top == "matching_model":
         fixed = {"conv1": "net.0", "bn1": "net.1", "head_conv1": "net.5",
                  "head_conv2": "net.8"}
@@ -101,8 +113,9 @@ def jax_to_state_dict(params: Dict, batch_stats: Dict
     norm with a scale is a BatchNorm where `batch_stats` holds its
     statistics and a GroupNorm where it holds none."""
     sd: Dict[str, np.ndarray] = {}
+    unet = "conv_stem" in params.get("matching_model", {})
     for path, leaf in _leaf_modules(params):
-        prefix = _torch_prefix(path)
+        prefix = _torch_prefix(path, unet)
         if "scale" in leaf:
             sd[f"{prefix}.weight"] = np.asarray(leaf["scale"])
             sd[f"{prefix}.bias"] = np.asarray(leaf["bias"])

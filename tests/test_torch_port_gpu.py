@@ -708,3 +708,65 @@ def test_scannet_reader_batches_through_device_prefetch(cuda, tmp_path):
                         got[part][key].cpu().numpy(), value)
                 else:
                     assert got[part][key] == value, key
+
+
+def test_unet_model_on_the_card_matches_the_cpu(cuda):
+    """The hero model with the UNet matching encoder, b1 at 192x256
+    float32, on the card and on the CPU from the same seeded weights:
+    the cost volume and the four log-depth maps within 2% of the CPU
+    map's standard deviation (as `chip_smoke.py`'s card-against-CPU
+    phases), which must be at least 1e-2; K1 launched once."""
+    from simplerecon_tpu_torch.models.depth_model import build_depth_model
+    from simplerecon_tpu_torch.online import make_batch
+    from simplerecon_tpu_torch.testing import (hero_options, posed_stream,
+                                               spread_outputs_)
+    opts = hero_options(image_height=192, image_width=256, precision="32",
+                        matching_encoder_type="unet_encoder")
+    cpu_model = spread_outputs_(build_depth_model(opts, device="cpu",
+                                                  seed=5), seed=5)
+    gpu_model = build_depth_model(opts, device=cuda, seed=5)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    frames = posed_stream(8, 192, 256, seed=3)
+    results = {}
+    for tag, model in (("cpu", cpu_model), ("gpu", gpu_model)):
+        cur, src = make_batch(frames[7], frames[:7], opts.matching_scale,
+                              next(model.parameters()).device)
+        captured = {}
+        model.cost_volume.register_forward_hook(
+            lambda mod, args, out: captured.update(volume=out[0]))
+        before = cuda_cv.fused_sweep.launches
+        with torch.no_grad():
+            out = model(cur, src)
+        assert cuda_cv.fused_sweep.launches - before == (tag == "gpu")
+        results[tag] = {k: v.cpu() for k, v in out.items()
+                        if v is not None}
+        results[tag]["cost_volume_bhwd"] = captured["volume"].cpu()
+    for key in ["cost_volume_bhwd"] + [f"log_depth_pred_s{i}_bhw1"
+                                       for i in range(4)]:
+        ref, got = results["cpu"][key], results["gpu"][key]
+        std = ref.std().item()
+        assert std >= 1e-2, (key, std)
+        assert (got - ref).abs().max().item() <= 0.02 * std, key
+
+
+def test_point_cloud_pass_on_the_card_matches_the_cpu(cuda):
+    """The consistency pass over 12 synthetic GT depth maps at 64x96 on
+    the card and on the CPU: every reference frame's keep mask differs
+    at no more than 1e-4 of its pixels (a projection that lands within
+    an ulp of |z - sampled| = z_thresh may fall either way), the kept
+    points within 1e-5 m where both keep them."""
+    import numpy as np
+    from simplerecon_tpu_torch.fusion.point_cloud import fuse_points
+    from simplerecon_tpu_torch.testing import synthetic_gt_frames
+    frames = synthetic_gt_frames(12, 64, 96)
+    args = [np.stack([f[k] for f in frames]) for k in ("world_T_cam", "K",
+                                                        "invK")]
+    depths = np.stack([f["depth_b1hw"][0] for f in frames])
+    cpu = fuse_points(depths, *args, device="cpu")
+    gpu = fuse_points(depths, *args, device=cuda)
+    for (p_cpu, k_cpu), (p_gpu, k_gpu) in zip(cpu, gpu):
+        assert (k_cpu != k_gpu).mean() <= 1e-4
+        both = k_cpu & k_gpu
+        assert both.sum() > 100
+        np.testing.assert_allclose(p_gpu[both], p_cpu[both], rtol=0,
+                                   atol=1e-5)

@@ -212,14 +212,6 @@ def test_port_imports_no_jax_flax_yaml_or_pil():
     assert proc.stdout.strip().endswith("ok")
 
 
-@pytest.mark.parametrize("override", [
-    {"matching_encoder_type": "unet_encoder"},
-], ids=lambda o: "-".join(map(str, o.values())))
-def test_unported_options_raise(override):
-    with pytest.raises(NotImplementedError):
-        build_depth_model(tiny_opts(**override), device="cpu")
-
-
 @pytest.mark.parametrize("backend", ["pallas_full", "pallas_v1"])
 def test_inference_only_backends_build_and_answer(backend):
     """The hero model with the sweep of K4 ("pallas_full") or of the

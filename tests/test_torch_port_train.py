@@ -41,6 +41,9 @@ fused sweep's forward and backward Pallas kernels in interpret mode
   lr * sign(grad), and a gradient near zero takes either sign, so
   scaling the input images by (1 + 2^-23) moves JAX's own loss by 1.2e-4
   and 1.3e-2 at steps 1 and 2, and the port's by 2.3e-4 and 1.5e-2.
+  The same steps with `matching_norm="group"` (the same weights, the
+  matching encoder's norms GroupNorm-8), at the same tolerance:
+  measured 5.6e-7, 1.1e-4 and 9.9e-4.
 """
 
 import copy
@@ -64,7 +67,8 @@ from simplerecon_tpu_torch.models.matching_encoder import \
 from simplerecon_tpu_torch.parallel import train as ttrain
 from simplerecon_tpu_torch.testing import (hero_options, spread_outputs_,
                                            train_batch)
-from simplerecon_tpu_torch.utils.weights import jax_to_state_dict
+from simplerecon_tpu_torch.utils.weights import (jax_to_state_dict,
+                                                 load_jax_variables)
 from test_torch_port_modules import bridged, nchw, randomize_bn
 from test_torch_port_ops import few_torch_threads  # noqa: F401 (autouse)
 
@@ -269,12 +273,42 @@ def _flat(tree) -> np.ndarray:
                            for leaf in jax.tree_util.tree_leaves(tree)])
 
 
-def test_consecutive_steps_follow_jax(slice_run):
-    """The losses of three AdamW steps (flip False). The JAX side starts
-    from the fixture's first step and updates the parameters flattened
-    into one vector with optax, as `test_adamw_update_matches_optax`
-    does; the port runs `forward_and_losses` and its optimizer."""
-    base, params, stats, batch, runs, grad_fn = slice_run
+@pytest.fixture(scope="module")
+def group_slice_run(slice_run):
+    """`slice_run` with `matching_norm="group"`: its weights, the matching
+    encoder's batch norms becoming GroupNorm-8 with their scale and bias
+    (and no running statistics), its batch, and the JAX step (flip
+    False) and compiled gradient of that model."""
+    _, params, stats, batch, _, _ = slice_run
+    stats = {k: v for k, v in stats.items() if k != "matching_model"}
+    jmodel = JaxDepthModel(
+        image_height=OPTS.image_height, image_width=OPTS.image_width,
+        matching_num_depth_bins=OPTS.matching_num_depth_bins,
+        model_num_views=OPTS.model_num_views, matching_norm="group",
+        cost_volume_backend="xla_fused",
+        cost_volume_custom_vjp="pallas_bwd", dtype=jnp.float32)
+    grad_fn = jax_grad_fn(jmodel)
+    runs = jax_train_runs(jmodel, params, stats, batch, flips=(False,),
+                          grad_fn=grad_fn)
+    opts = copy.copy(OPTS)
+    opts.matching_norm = "group"
+    base = load_jax_variables(build_depth_model(opts, device="cpu"),
+                              {"params": _numpy_tree(params),
+                               "batch_stats": _numpy_tree(stats)})
+    assert isinstance(base.matching_model.net[1], torch.nn.GroupNorm)
+    return base, params, stats, batch, runs, grad_fn
+
+
+@pytest.mark.parametrize("norm", ["batch", "group"])
+def test_consecutive_steps_follow_jax(norm, request):
+    """The losses of three AdamW steps (flip False), with the matching
+    encoder's batch norms and with its group norms (`matching_norm`),
+    at the same tolerance. The JAX side starts from the fixture's first
+    step and updates the parameters flattened into one vector with
+    optax, as `test_adamw_update_matches_optax` does; the port runs
+    `forward_and_losses` and its optimizer."""
+    base, params, stats, batch, runs, grad_fn = request.getfixturevalue(
+        "slice_run" if norm == "batch" else "group_slice_run")
     leaves, treedef = jax.tree_util.tree_flatten(params)
     shapes = [np.shape(leaf) for leaf in leaves]
     tx = jtrain.make_optimizer(OPTS)
