@@ -175,10 +175,31 @@ non-zero, and only a run that passes them all prints the last line:
 31. `scripts/generate_gt_min_max_cache.py`, then
    `scripts/visualize_scene_depth_output.py` over phase 17's cached
    depths: no kernel, 41 frames whose sides are multiples of 16, an mp4
-   that reads back.
+   that reads back;
+32. the hero b16 bf16 training step through
+   `parallel/train.py::ddp_train_step` at world size 1 over NCCL: losses,
+   gradient norm, every gradient, parameter and buffer the same bits as
+   `train_step`'s; step ms of both;
+33. two ranks sharing the card over gloo (NCCL takes one rank a card):
+   the hero at full width, global batch 16 (8 a rank), bf16, 2 steps
+   (`testing.run_ddp_steps`): K1, K2 and the scatter once per rank per
+   step, the ranks' parameters and buffers the same bits, the result
+   within DDP_SHARED_TOL of the single-process mean of the two b8 halves
+   (and whether it is the same bits); step ms and peak memory per rank;
+34. the training CLI with `--num_devices 2` on the shared card (4 steps,
+   `backend="gloo"`): K1, K2 and the scatter once per rank per step, K1
+   once more for rank 0's validation batch, the JSON lines, a checkpoint
+   the single-device restore reads; then the eval CLI with
+   `--data_parallel_eval` over ["cuda:0", "cuda:0"] on the 41-frame
+   scene: K1 once a shard, depths within DP_EVAL_L2_TOL of phase 17's;
+35. a `.sens` file's colour exported at 480x640, every JPEG the bytes
+   Pillow writes (`tests/data_torch/jpeg_encode.json`), and an
+   ios-logger capture written on the machine through
+   `scripts/preprocess_ios_logger.py`; ms a frame of each.
 Phases 7, 12, 23 and 28 end with two forward-and-backward passes from
 one state whose gradients must be the same bits. The run prints the
-time of phases 20-23, of phases 24-27, of phases 28-31 and its total.
+time of phases 20-23, of phases 24-27, of phases 28-31, of phases 32-35
+and its total.
 
 The line before the last is the kernel report as JSON (the seven
 kernels that replace the TPU kernels, the scatter that sums K2's d_src
@@ -216,11 +237,12 @@ from simplerecon_tpu_torch.online import \
 from simplerecon_tpu_torch.ops import (  # noqa: E402
     _build, cuda_cv, early_sweeps, pool)
 from simplerecon_tpu_torch.ops import cost_volume as cv_ops  # noqa: E402
-from simplerecon_tpu_torch.parallel import train  # noqa: E402
+from simplerecon_tpu_torch.parallel import mesh, train  # noqa: E402
 from simplerecon_tpu_torch import native  # noqa: E402
 from simplerecon_tpu_torch.data import codec, synthetic  # noqa: E402
 from simplerecon_tpu_torch.data.io import readlines  # noqa: E402
 from simplerecon_tpu_torch.data.scannet import ScannetDataset  # noqa: E402
+from simplerecon_tpu_torch.data.sens_reader import SensorData  # noqa: E402
 from simplerecon_tpu_torch.data.synthetic import make_room_mesh  # noqa: E402
 from simplerecon_tpu_torch.fusion.fusers import OurFuser  # noqa: E402
 from simplerecon_tpu_torch.fusion.mesh import read_ply  # noqa: E402
@@ -239,6 +261,8 @@ from simplerecon_tpu_torch.scripts import \
 from simplerecon_tpu_torch.scripts import generate_tuples  # noqa: E402
 from simplerecon_tpu_torch.scripts import test as eval_cli  # noqa: E402
 from simplerecon_tpu_torch.scripts import grand_loop  # noqa: E402
+from simplerecon_tpu_torch.scripts import \
+    preprocess_ios_logger  # noqa: E402
 from simplerecon_tpu_torch.scripts import train as train_cli  # noqa: E402
 from simplerecon_tpu_torch.utils import checkpoint as ckpt_lib  # noqa: E402
 from simplerecon_tpu_torch.utils.checkpoint import \
@@ -251,10 +275,12 @@ from simplerecon_tpu_torch.testing import (  # noqa: E402
     compare_scan_depths, dot_case,
     dot_options, hero_options, plane_ratio, synthetic_gt_bounds,
     synthetic_gt_frames, pool_case, pool_cotangent, posed_stream,
-    relative_errors, scatter_case,
+    compare_depth_maps, compare_ranks, relative_errors, run_ddp_steps,
+    scatter_case,
+    shard_mean_steps,
     shifted, spread_outputs_, stack_case, sweep_case, sweep_cotangent,
-    synthetic_tuples, train_batch, warp_case, write_scannet_scan,
-    write_tuples)
+    synthetic_tuples, train_batch, warp_case, write_ios_capture,
+    write_scannet_scan, write_sens, write_tuples)
 
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # K1 in bf16 against the float32 plain version, relative L2: bf16 rounds
@@ -1829,16 +1855,18 @@ def check_png(path: str) -> tuple:
 
 
 def train_cli_options(out: str, *extra):
-    """The training CLI's options as a user gives them: the hero YAML, the
-    synthetic scene, CLI_STEPS steps with a log every CLI_LOG_INTERVAL
-    and a validation of one batch every CLI_VAL_INTERVAL; `extra` flags
-    after them."""
+    """The training CLI's options as a user of one card gives them: the
+    hero YAML (which asks for the reference's two cards) with one rank,
+    the synthetic scene, CLI_STEPS steps with a log every
+    CLI_LOG_INTERVAL and a validation of one batch every
+    CLI_VAL_INTERVAL; `extra` flags after them."""
     return OptionsHandler().parse_and_merge_options(cl_args_list=[
         "--config_file", "configs/models/hero_model.yaml",
         "--dataset", "synthetic", "--single_debug_scan_id", "scene",
-        "--max_steps", str(CLI_STEPS), "--log_interval",
-        str(CLI_LOG_INTERVAL), "--val_interval", str(CLI_VAL_INTERVAL),
-        "--val_batches", "1", "--log_dir", out, *extra])
+        "--num_devices", "1", "--max_steps", str(CLI_STEPS),
+        "--log_interval", str(CLI_LOG_INTERVAL), "--val_interval",
+        str(CLI_VAL_INTERVAL), "--val_batches", "1", "--log_dir", out,
+        *extra])
 
 
 def read_jsonl(path: str) -> list:
@@ -2451,6 +2479,317 @@ def phase_depth_video(device) -> dict:
     return dict(launches=counts, total=total)
 
 
+DDP_OUT = "build/ddp_shared"
+DDP_CLI_OUT = "build/ddp_train_cli"
+DP_EVAL_OUT = "build/dp_eval_out"
+DDP_STEPS = 2
+DDP_TIMED_STEPS = 3
+DDP_CLI_STEPS = 4
+# two ranks sharing the card against the single-process mean of the two
+# b8 halves, after DDP_STEPS AdamW steps: relative L2 of the parameters
+# and of the running statistics (the same kernels on the same rows: the
+# same bits are expected; Adam's first updates move a weight by about
+# lr x the sign of its gradient, so a gradient summed another way shows
+# as ~1e-4, a missing or wrong average as ~1)
+DDP_SHARED_TOL = 1e-3
+# the data-parallel eval (b8 shards) against phase 17 (b16 batches), bf16:
+# relative L2 of each depth map, and the share of lowest-cost pixels on
+# the same plane
+DP_EVAL_L2_TOL = 1e-2
+DP_EVAL_LOWEST_AGREE = 0.99
+
+
+def rank_launches(rank_stats: dict) -> dict:
+    """A rank's launch counts (wrapper names) by the names of COUNTERS."""
+    counts = rank_stats["launches"]
+    return {name: counts[fn.__name__] for name, fn in COUNTERS.items()}
+
+
+def _state(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def phase_ddp_single(device, bare_step_ms: float) -> dict:
+    """32: the hero b16 bf16 training step through
+    `parallel/train.py::ddp_train_step` at world size 1 over NCCL against
+    `train_step`: losses, gradient norm, every gradient, parameter and
+    buffer the same bits; then DDP_TIMED_STEPS more steps of each, timed."""
+    opts = hero_options()
+    batch = train.batch_to_device(train_batch(opts, TRAIN_BATCH, seed=7),
+                                  device)
+    torch.cuda.empty_cache()
+    os.makedirs(DDP_OUT, exist_ok=True)
+    init_file = os.path.abspath(f"{DDP_OUT}/world1")
+    if os.path.exists(init_file):
+        os.remove(init_file)
+    backend = mesh.init_process_group(0, 1, init_file, device, "nccl")
+    runs = {}
+    try:
+        for tag in ("plain", "ddp"):
+            model = build_depth_model(opts, device=device, seed=0)
+            optimizer = train.make_optimizer(opts, model)
+            generator = torch.Generator().manual_seed(0)
+            if tag == "plain":
+                def step():
+                    return train.train_step(model, optimizer, batch,
+                                            generator)
+            else:
+                wrapped = train.wrap_ddp(model)
+
+                def step():
+                    return train.ddp_train_step(wrapped, optimizer, batch,
+                                                generator)
+            torch.cuda.synchronize()
+            reset_launches()
+            metrics = step()
+            torch.cuda.synchronize()
+            counts = launches()
+            grads = {n: p.grad.detach().clone()
+                     for n, p in model.named_parameters()}
+            state = _state(model)
+            step_ms = []
+            for _ in range(DDP_TIMED_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            runs[tag] = dict(metrics={k: float(v) for k, v in metrics.items()},
+                             grads=grads, state=state, counts=counts,
+                             step_ms=step_ms)
+            del model, optimizer, step
+            torch.cuda.empty_cache()
+    finally:
+        mesh.destroy_process_group()
+    plain, ddp = runs["plain"], runs["ddp"]
+    for run in runs.values():
+        assert_launches(run["counts"], {"K1": 1, "K2": 1, "scatter": 1})
+    grads_differ = [n for n, g in plain["grads"].items()
+                    if not torch.equal(g, ddp["grads"][n])]
+    state_differ = [k for k, v in plain["state"].items()
+                    if not torch.equal(v, ddp["state"][k])]
+    print(f"[ddp_single] hero b{TRAIN_BATCH} bf16, {backend} world size 1:"
+          f" launches {ddp['counts']}; loss {ddp['metrics']['loss']!r} "
+          f"(plain {plain['metrics']['loss']!r}); gradients that differ "
+          f"{len(grads_differ)} of {len(plain['grads'])}, state entries "
+          f"that differ {len(state_differ)} of {len(plain['state'])}"
+          + (f" ({grads_differ[:3]}, {state_differ[:3]})"
+             if grads_differ or state_differ else ""))
+    print(f"[ddp_single] step ms: DDP " + ", ".join(
+        f"{x:.2f}" for x in ddp["step_ms"]) + "; plain " + ", ".join(
+        f"{x:.2f}" for x in plain["step_ms"])
+        + f" (phase 7's bare step {bare_step_ms:.2f})")
+    assert plain["metrics"] == ddp["metrics"], (plain["metrics"],
+                                                ddp["metrics"])
+    assert not grads_differ and not state_differ
+    return dict(step_ms=statistics.median(ddp["step_ms"]),
+                plain_ms=statistics.median(plain["step_ms"]))
+
+
+def phase_ddp_shared(device) -> dict:
+    """33: two ranks share the card over gloo (NCCL takes one rank a
+    card): the hero at full width, global batch 16 (b8 a rank), bf16,
+    DDP_STEPS steps with the flip coin of one seeded generator. K1, K2 and
+    the scatter once per rank per step; the ranks' parameters and buffers
+    the same bits; the result within DDP_SHARED_TOL of the single-process
+    mean of the two b8 halves (its losses, gradient norm, parameters and
+    running statistics); step ms and peak memory per rank."""
+    opts = hero_options()
+    batch = train_batch(opts, TRAIN_BATCH, seed=7)
+    shutil.rmtree(DDP_OUT, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    ranks = run_ddp_steps(2, DDP_OUT, opts, 0, batch, [None] * DDP_STEPS,
+                          device_type="cuda", backend="gloo")
+    wall = time.perf_counter() - t0
+    assert_launches(launches(), {})         # the parent launched nothing
+    for rank in ranks:
+        assert_launches(rank_launches(rank), {
+            "K1": DDP_STEPS, "K2": DDP_STEPS, "scatter": DDP_STEPS})
+    want, ref = shard_mean_steps(opts, batch, 2, DDP_STEPS, device)
+    torch.cuda.empty_cache()
+    report = compare_ranks(ranks, want, ref)
+    assert report["ranks_equal"], report
+    got = ranks[0]["metrics"]
+    step_ms = [r["step_ms"] for r in ranks]
+    peak = [r["peak_memory_bytes"] / 2 ** 30 for r in ranks]
+    print(f"[ddp_shared] hero global b{TRAIN_BATCH} bf16 over 2 gloo ranks "
+          f"on one card, {DDP_STEPS} steps: launches per rank "
+          f"{[rank_launches(r) for r in ranks]}; losses " + ", ".join(
+              f"{m['loss']:.6f}" for m in got) + " (single-process mean "
+          + ", ".join(f"{m['loss']:.6f}" for m in want) + ")")
+    print(f"[ddp_shared] against the single-process mean of the halves: "
+          f"parameters relative L2 {report['param_rel']:.3e}, running "
+          f"statistics {report['stat_rel']:.3e}, losses and gradient norms "
+          f"{report['loss_rel']:.3e}, the same bits: {report['same_bits']};"
+          f" ranks bit-equal: True; step ms per rank "
+          f"{[[round(x, 2) for x in ms] for ms in step_ms]}; peak memory "
+          f"per rank {[round(x, 2) for x in peak]} GiB; wall {wall:.1f} s "
+          "with the ranks' start")
+    assert max(report["param_rel"], report["stat_rel"],
+               report["loss_rel"]) <= DDP_SHARED_TOL, report
+    return dict(ranks=[rank_launches(r) for r in ranks],
+                step_ms=[statistics.median(ms[1:]) for ms in step_ms],
+                peak_gib=peak, param_rel=report["param_rel"],
+                same_bits=report["same_bits"])
+
+
+def phase_ddp_clis(device, eval_run: dict) -> dict:
+    """34: the training CLI with `--num_devices 2` on the shared card
+    (`backend="gloo"`) at full width, DDP_CLI_STEPS steps, a log every 2,
+    a validation at the end: K1, K2 and the scatter once per rank per step
+    (and K1 once for rank 0's validation batch), the JSON lines and a
+    checkpoint the single-device restore reads; then the eval CLI with
+    `--data_parallel_eval` over ["cuda:0", "cuda:0"] on the 41-frame
+    scene: K1 once a shard, depths within DP_EVAL_L2_TOL of phase 17's."""
+    shutil.rmtree(DDP_CLI_OUT, ignore_errors=True)
+    opts = train_cli_options(
+        DDP_CLI_OUT, "--num_devices", "2", "--max_steps",
+        str(DDP_CLI_STEPS), "--log_interval", "2", "--val_interval",
+        str(DDP_CLI_STEPS))
+    assert_hero_full_width(opts)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    with plain_sweeps() as plain:
+        reset_launches()
+        t0 = time.perf_counter()
+        state = train_cli.main(opts, device=device, backend="gloo")
+        train_s = time.perf_counter() - t0
+        counts = launches()
+    assert plain[0] == 0 and not any(counts.values()), (plain, counts)
+    ranks = state.run_stats["ranks"]
+    for rank, stats in enumerate(ranks):
+        assert stats["steps"] == DDP_CLI_STEPS, stats["steps"]
+        assert_launches(rank_launches(stats), {
+            "K1": DDP_CLI_STEPS + (1 if rank == 0 else 0),
+            "K2": DDP_CLI_STEPS, "scatter": DDP_CLI_STEPS})
+    assert state.step == state.optimizer.count == DDP_CLI_STEPS
+    root = f"{DDP_CLI_OUT}/{opts.name}"
+    rows = read_jsonl(f"{root}/metrics.jsonl")
+    train_rows = [r for r in rows if "train/loss" in r]
+    assert [r["step"] for r in train_rows] == [2, 4], rows
+    assert all(set(r) == TRAIN_ROW_KEYS for r in train_rows), train_rows
+    assert all(np.isfinite(v) for r in rows for v in r.values()), rows
+    assert [r["step"] for r in rows if "val/loss" in r] == [DDP_CLI_STEPS]
+    assert os.listdir(f"{root}/checkpoints") == [f"step_{DDP_CLI_STEPS}"]
+    step_ms = [[t * 1e3 for t in r["step_seconds"]] for r in ranks]
+    print(f"[ddp_train_cli] --num_devices 2 on one card over gloo, hero "
+          f"global b{opts.batch_size} bf16: launches per rank "
+          f"{[rank_launches(r) for r in ranks]} (parent {counts}); losses "
+          + ", ".join(f"{r['step']}: {r['train/loss']:.4f}"
+                      for r in train_rows)
+          + f"; step ms per rank {[[round(x, 1) for x in ms] for ms in step_ms]}"
+          f"; peak memory per rank "
+          f"{[round(r['peak_memory_bytes'] / 2 ** 30, 2) for r in ranks]} "
+          f"GiB; total {train_s:.1f} s")
+    del state
+    torch.cuda.empty_cache()
+
+    shutil.rmtree(DP_EVAL_OUT, ignore_errors=True)
+    eval_opts = eval_options(DP_EVAL_OUT, "--cache_depths",
+                             "--data_parallel_eval")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    frame_avg, _ = eval_cli.main(eval_opts, devices=["cuda:0", "cuda:0"])
+    eval_s = time.perf_counter() - t0
+    eval_counts = launches()
+    stats = frame_avg.run_stats
+    assert (stats["frames"], stats["batches"]) == (41, 3), stats
+    assert_launches(eval_counts, {"K1": 2 * stats["batches"]})
+    check_eval_outputs(eval_opts)
+    depths = compare_depth_maps(
+        f"{eval_results(eval_opts)}/depths/scene",
+        f"{eval_results(eval_run['opts'])}/depths/scene")
+    print(f"[dp_eval] --data_parallel_eval over cuda:0 twice: "
+          f"{stats['frames']} frames in {stats['batches']} batches, launches "
+          f"{eval_counts}; forward {stats['forward_device'] / 41 * 1e3:.3f} "
+          f"ms/frame by CUDA events (phase 17 "
+          f"{eval_run['stats']['forward_device'] / 41 * 1e3:.3f}); total "
+          f"{eval_s:.2f} s; against phase 17's depths: {depths}")
+    assert depths["frames"] == 41, depths
+    assert depths["depth_l2"] <= DP_EVAL_L2_TOL, depths
+    assert depths["lowest_agree"] >= DP_EVAL_LOWEST_AGREE, depths
+    return dict(ranks=[rank_launches(r) for r in ranks],
+                step_ms=[statistics.median(ms[1:]) for ms in step_ms],
+                train_s=train_s, eval_counts=eval_counts, eval_s=eval_s,
+                depths=depths)
+
+
+SENS_OUT = "build/sens_export"
+IOS_OUT = "build/ios_capture"
+EXPORT_FRAMES = 8
+
+
+def phase_exports() -> dict:
+    """35: host exports. A `.sens` file (`testing.write_sens`) whose
+    colour frames are the 968x1296 fixture JPEG, exported by
+    `SensorData.export_color_images` at 480x640: every file the bytes
+    Pillow writes for those pixels (`tests/data_torch/jpeg_encode.json`);
+    then an ios-logger capture written on this machine
+    (`testing.write_ios_capture`: an mp4v `Frames.m4v` of 480x640 frames)
+    through `scripts/preprocess_ios_logger.py`: one PNG, pose and
+    intrinsics file a frame, the PNGs near the frames written, the poses
+    rigid. ms a frame of each."""
+    with open(f"{CODEC_FIXTURES}/jpeg_encode.json") as f:
+        want = json.load(f)
+    with open(f"{CODEC_FIXTURES}/{want['source']}", "rb") as f:
+        jpeg = f.read()
+    colour = codec.decode_image(jpeg)
+    shutil.rmtree(SENS_OUT, ignore_errors=True)
+    os.makedirs(SENS_OUT)
+    sens = f"{SENS_OUT}/scan.sens"
+    write_sens(sens, [jpeg] * EXPORT_FRAMES,
+               [np.full((480, 640), 1500, np.uint16)] * EXPORT_FRAMES,
+               colour.shape[:2], (480, 640))
+    reader = SensorData(sens)
+    t0 = time.perf_counter()
+    reader.export_color_images(f"{SENS_OUT}/sensor_data",
+                               image_size=tuple(want["size"]))
+    sens_ms = (time.perf_counter() - t0) * 1e3 / EXPORT_FRAMES
+    names = sorted(os.listdir(f"{SENS_OUT}/sensor_data"))
+    assert names == [f"frame-{i:06d}.color.jpg"
+                     for i in range(EXPORT_FRAMES)], names
+    for name in names:
+        with open(f"{SENS_OUT}/sensor_data/{name}", "rb") as f:
+            data = f.read()
+        assert hashlib.sha256(data).hexdigest() == want["sha256"], name
+        assert codec.decode_image(data).shape == tuple(want["size"]) + (3,)
+
+    shutil.rmtree(IOS_OUT, ignore_errors=True)
+    frames = []
+    for i in range(EXPORT_FRAMES):
+        frame = codec.resize(np.roll(colour, 40 * i, axis=1), 480, 640)
+        frames.append(np.ascontiguousarray(frame[..., ::-1]))
+    write_ios_capture(IOS_OUT, frames)
+    t0 = time.perf_counter()
+    n = preprocess_ios_logger.process_scan(IOS_OUT)
+    ios_ms = (time.perf_counter() - t0) * 1e3 / max(n, 1)
+    assert n == EXPORT_FRAMES, n
+    psnrs = []
+    for i in range(n):
+        png = codec.read_image(f"{IOS_OUT}/images/{i:06d}.png")
+        assert png.shape == (480, 640, 3), png.shape
+        err = np.mean((png.astype(np.float64)
+                       - frames[i][..., ::-1].astype(np.float64)) ** 2)
+        psnrs.append(10 * np.log10(255.0 ** 2 / max(err, 1e-12)))
+        pose = np.loadtxt(f"{IOS_OUT}/poses/{i:06d}.txt")
+        rot = pose[:3, :3]
+        assert np.allclose(rot @ rot.T, np.eye(3), atol=1e-5), pose
+        intr = np.loadtxt(f"{IOS_OUT}/intrinsics/{i:06d}.txt")
+        assert tuple(intr[4:]) == (640, 480), intr
+    print(f"[exports] .sens colour export: {len(names)} frames of "
+          f"{want['source']} at {want['size'][0]}x{want['size'][1]}, each "
+          f"Pillow's bytes; {sens_ms:.2f} ms a frame (decode, resize, "
+          f"encode, write); ios-logger: {n} frames from an mp4v "
+          f"Frames.m4v, PNG PSNR against the frames written "
+          f"{min(psnrs):.2f}-{max(psnrs):.2f} dB; {ios_ms:.2f} ms a frame")
+    assert min(psnrs) >= 25.0, psnrs
+    return dict(sens_ms=sens_ms, ios_ms=ios_ms)
+
+
 def kernel_entry(name, source, replaces, launches_on_path, measured) -> dict:
     bound, bound_by = measured["bound"]
     return {"name": name, "route": "cuda", "source": source,
@@ -2511,7 +2850,13 @@ def main():
     pc_run = phase_pc_fusion(device)
     live_run = phase_live_meshing(device)
     phase_depth_video(device)
-    print(f"[summary] phases 28-31 took {time.perf_counter() - t_viz:.1f} s")
+    t_ddp = time.perf_counter()
+    print(f"[summary] phases 28-31 took {t_ddp - t_viz:.1f} s")
+    ddp_single = phase_ddp_single(device, trained["step_ms"])
+    ddp_shared = phase_ddp_shared(device)
+    ddp_clis = phase_ddp_clis(device, eval_run)
+    phase_exports()
+    print(f"[summary] phases 32-35 took {time.perf_counter() - t_ddp:.1f} s")
     loaded = [m for m in sys.modules if m in ("jax", "flax", "yaml", "PIL")
               or m == "simplerecon_tpu" or m.startswith("simplerecon_tpu.")]
     assert not loaded, f"the port pulled in {loaded}"
@@ -2543,7 +2888,12 @@ def main():
           f"K1 {pc_run['launches']['K1']}, pass {pc_run['pass_ms']:.3f} ms,"
           f" total {pc_run['total']:.1f} s. live meshing: K1 "
           f"{live_run['launches']['K1']}, {live_run['keyframe_ms']:.1f} ms "
-          f"a keyframe, total {live_run['total']:.1f} s. run total "
+          f"a keyframe, total {live_run['total']:.1f} s. DDP: world size 1 "
+          f"step {ddp_single['step_ms']:.1f} ms (plain "
+          f"{ddp_single['plain_ms']:.1f}); two ranks on one card "
+          f"{ddp_shared['ranks']}, step {ddp_shared['step_ms']} ms; train "
+          f"CLI --num_devices 2 {ddp_clis['ranks']}; data-parallel eval "
+          f"{ddp_clis['eval_counts']}. run total "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         kernel_entry("fused_sweep_mlp",

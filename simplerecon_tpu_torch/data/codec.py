@@ -18,6 +18,11 @@ numpy functions that give what `np.asarray(PIL.Image.open(path))` and
   12-bit, CMYK and other subsampled JPEGs.
 - `resize`: Pillow's BILINEAR for 8-bit images (antialiased when it
   shrinks) and NEAREST for any.
+- `encode_jpeg`: RGB as a baseline JPEG, 4:2:0, the IJG tables scaled to
+  a quality (75 by default, as Pillow saves), the standard Huffman
+  tables, a JFIF header; libjpeg-turbo's colour conversion, chroma
+  filter, edge padding and islow forward DCT, so the coefficients are
+  the ones Pillow writes.
 """
 
 from __future__ import annotations
@@ -70,6 +75,9 @@ def _lib():
                                        ctypes.c_int, _U8P, ctypes.c_int,
                                        ctypes.c_int, ctypes.c_int]
         lib.resize_nearest.restype = None
+        lib.jpeg_encode.argtypes = [_U8P, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_int, _U8P, ctypes.c_int64]
+        lib.jpeg_encode.restype = ctypes.c_int64
         lib._typed = True
     return lib
 
@@ -144,6 +152,27 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
     if err:
         raise ValueError(f"{name}: {JPEG_ERRORS.get(err, err)}")
     return out[..., 0] if c == 1 else out
+
+
+def encode_jpeg(image: np.ndarray, quality: int = 75) -> bytes:
+    """An (h, w, 3) uint8 RGB image as the bytes of a baseline JPEG
+    file."""
+    image = np.ascontiguousarray(image)
+    if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
+        raise ValueError("encode_jpeg takes (h, w, 3) uint8 RGB images, not "
+                         f"{image.dtype} {image.shape}")
+    h, w = image.shape[:2]
+    if not (0 < h < 65536 and 0 < w < 65536):
+        raise ValueError(f"a JPEG cannot hold {h}x{w} pixels")
+    # six blocks an MCU, each at most 64 codes of 27 bits, every byte
+    # stuffed: far more than any image needs
+    capacity = ((h + 15) // 16) * ((w + 15) // 16) * 6 * 432 + 1024
+    out = np.empty(capacity, np.uint8)
+    n = _lib().jpeg_encode(_ptr(image), h, w, int(quality), _ptr(out),
+                           capacity)
+    if n < 0:
+        raise RuntimeError("the JPEG encoder overran its buffer")
+    return out[:n].tobytes()
 
 
 def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:

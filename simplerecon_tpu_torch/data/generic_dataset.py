@@ -10,6 +10,10 @@
   * a 50% geometric flip at train time: pose right-multiplied by
     diag(-1,1,1,1), images and depths x-flipped, intrinsics cx mirrored;
   * ColorJitter(0.2,0.2,0.2,0.2) on train colour;
+  * every random draw of an item (the flip coin, the jitter's order and
+    factors, the `shuffle_tuple` shuffle) from one `RandomState`: the
+    one `__getitem__` is given (the loader gives each item its own, from
+    (seed, epoch, index): `loader.item_rng`), else the dataset's `rng`;
   * imagenet normalisation;
   * NaN where depth is invalid;
   * source frames sorted by DVMVS pose distance to the reference.
@@ -18,7 +22,6 @@
 from __future__ import annotations
 
 import os
-import random
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -73,7 +76,8 @@ class GenericMVSDataset:
         self.include_full_depth_K = include_full_depth_K
         self.pass_frame_id = pass_frame_id
 
-        self.rng = rng or np.random.RandomState()
+        # the draws of an item called without a state of its own
+        self.rng = rng if rng is not None else np.random.RandomState(0)
         self.color_transform = (dio.ColorJitter(rng=self.rng)
                                 if color_jitter else None)
 
@@ -200,8 +204,11 @@ class GenericMVSDataset:
         return entry
 
     def get_frame(self, scan_id, frame_id, load_depth: bool,
-                  flip: bool = False) -> Dict[str, np.ndarray]:
-        """One frame's data."""
+                  flip: bool = False,
+                  rng: Optional[np.random.RandomState] = None
+                  ) -> Dict[str, np.ndarray]:
+        """One frame's data; the colour jitter draws from `rng` (by
+        default the dataset's)."""
         out: Dict[str, np.ndarray] = {}
 
         (world_T_cam, cam_T_world), image, depth_entry = \
@@ -213,7 +220,7 @@ class GenericMVSDataset:
             cam_T_world = np.linalg.inv(world_T_cam)
 
         if self.split == "train" and self.color_transform is not None:
-            image = self.color_transform(image)
+            image = self.color_transform(image, rng)
         if flip:
             image = image[..., ::-1].copy()
         image = dio.imagenet_normalize_np(image)
@@ -268,21 +275,27 @@ class GenericMVSDataset:
                 stacked[name] = np.stack([f[name] for f in src_data], 0)
         return stacked
 
-    def __getitem__(self, idx: int) -> Tuple[Dict, Dict]:
+    def __getitem__(self, idx: int,
+                    rng: Optional[np.random.RandomState] = None
+                    ) -> Tuple[Dict, Dict]:
+        """Item `idx`; its flip coin, shuffle and colour jitter draw from
+        `rng`, by default the dataset's own state."""
+        rng = self.rng if rng is None else rng
         flip_threshold = 0.5 if self.split == "train" else 0.0
-        flip = bool(self.rng.rand() < flip_threshold)
+        flip = bool(rng.rand() < flip_threshold)
 
         scan_id, *frame_ids = self.frame_tuples[idx].split(" ")
 
         if self.shuffle_tuple:  # ablation switch
             rest = frame_ids[1:]
-            random.shuffle(rest)
+            rng.shuffle(rest)
             frame_ids = [frame_ids[0]] + rest
 
         if self.num_images_in_tuple is not None:
             frame_ids = frame_ids[:self.num_images_in_tuple]
 
-        frames = [self.get_frame(scan_id, fid, load_depth=True, flip=flip)
+        frames = [self.get_frame(scan_id, fid, load_depth=True, flip=flip,
+                                 rng=rng)
                   for fid in frame_ids]
         cur_data, *src_list = frames
 

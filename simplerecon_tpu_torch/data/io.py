@@ -89,6 +89,7 @@ class ColorJitter:
     """torchvision-style ColorJitter(0.2, 0.2, 0.2, 0.2) on (3, h, w)
     arrays in [0, 1]: brightness, contrast and saturation factors uniform
     in [1-x, 1+x], a hue shift uniform in [-0.2, 0.2], in random order.
+    The draws come from the state a call is given, else from `rng`.
     """
 
     def __init__(self, brightness=0.2, contrast=0.2, saturation=0.2,
@@ -97,14 +98,15 @@ class ColorJitter:
         self.contrast = contrast
         self.saturation = saturation
         self.hue = hue
-        self.rng = rng or np.random.RandomState()
+        self.rng = rng if rng is not None else np.random.RandomState(0)
 
     def _grayscale(self, img):  # ITU-R 601-2 luma, as torchvision
         return (0.299 * img[0] + 0.587 * img[1] + 0.114 * img[2])[None]
 
-    def __call__(self, img_3hw: np.ndarray) -> np.ndarray:
+    def __call__(self, img_3hw: np.ndarray,
+                 rng: Optional[np.random.RandomState] = None) -> np.ndarray:
         img = img_3hw.astype(np.float32)
-        r = self.rng
+        r = self.rng if rng is None else rng
         ops = list(range(4))
         r.shuffle(ops)
         for op in ops:

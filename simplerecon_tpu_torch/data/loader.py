@@ -4,11 +4,17 @@
 `DataLoader` decodes tuples in a thread pool (numpy and the native
 rasterizer release the GIL for the heavy parts) while a background
 thread keeps a bounded queue of ready batches, numpy dicts
-`{"cur": ..., "src": ...}`. `device_prefetch` moves them onto a device,
-one batch ahead of the consumer: on a CUDA device each array is copied
-into pinned host memory and then, without blocking, to the card on a
-side stream, and the consumer's stream waits for that copy before it
-takes the batch. String leaves (frame ids) pass through.
+`{"cur": ..., "src": ...}`. Each item draws its augmentation from a
+state of its own, made from (seed, epoch, index) (`item_rng`), and the
+epoch's order from the loader's seeded state, so the batches depend on
+neither `num_workers` nor the threads' timing; a loader given
+`shard=(rank, world)` decodes only that rank's rows of each batch,
+which are the rows a single loader would give there.
+
+`device_prefetch` moves the batches onto a device, one batch ahead of
+the consumer: on a CUDA device each array is copied into pinned host
+memory and then, without blocking, to the card on a side stream, and
+the consumer's stream waits for that copy before it takes the batch. String leaves (frame ids) pass through.
 """
 
 from __future__ import annotations
@@ -110,30 +116,48 @@ def device_prefetch(batches, device, size: int = 2
         yield take(out)
 
 
+def item_rng(seed: int, epoch: int, index: int) -> np.random.RandomState:
+    """The state item `index` of epoch `epoch` draws its flip coin,
+    shuffle and colour jitter from."""
+    return np.random.RandomState(np.random.MT19937(
+        np.random.SeedSequence([seed, epoch, int(index)])))
+
+
 class DataLoader:
     """Iterates batches over a dataset with threaded decode and prefetch.
 
     Args:
         dataset: any `GenericMVSDataset`.
-        batch_size: batch size (the last batch is partial unless
-            `drop_last`).
+        batch_size: the global batch size (the last batch is partial
+            unless `drop_last`).
         shuffle: reshuffle element order each epoch.
         num_workers: decode threads.
         prefetch: max ready batches queued ahead.
+        seed: seeds the epochs' order and every item's state.
+        shard: `(rank, world)`: yield only rows [rank * b / world,
+            (rank + 1) * b / world) of each batch of b rows, b a multiple
+            of `world`.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 8, prefetch: int = 4,
                  drop_last: bool = False, seed: int = 0,
-                 adapter=None):
+                 adapter=None, shard=(0, 1)):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
         self.drop_last = drop_last
+        self.seed = seed
         self.rng = np.random.RandomState(seed)
+        self.epoch = 0
         self.adapter = adapter
+        self.rank, self.world = shard
+        if batch_size % self.world or not drop_last and self.world > 1:
+            raise ValueError(
+                f"batch_size {batch_size} must divide over {self.world} "
+                "ranks, with drop_last")
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -149,7 +173,14 @@ class DataLoader:
 
     def __iter__(self) -> Iterator[Dict[str, Dict]]:
         indices = self._indices()
+        epoch = self.epoch
+        self.epoch += 1
         n_batches = len(self)
+        rows = self.batch_size // self.world
+
+        def item(index):
+            return self.dataset.__getitem__(
+                index, item_rng(self.seed, epoch, index))
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
@@ -160,9 +191,9 @@ class DataLoader:
                         if stop.is_set():
                             return
                         chunk = indices[b * self.batch_size:
-                                        (b + 1) * self.batch_size]
-                        elems = list(pool.map(self.dataset.__getitem__,
-                                              chunk))
+                                        (b + 1) * self.batch_size][
+                            self.rank * rows:(self.rank + 1) * rows]
+                        elems = list(pool.map(item, chunk))
                         batch = collate(elems)
                         if self.adapter is not None:
                             batch = self.adapter(batch)

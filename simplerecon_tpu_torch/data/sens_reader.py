@@ -4,10 +4,10 @@ format (version 4): calibration matrices, per-frame camera-to-world
 poses, zlib-compressed uint16 depth ("occi" = zlib) and JPEG color, and
 exports
 `frame-XXXXXX.{color.jpg,depth.png,pose.txt}` + `intrinsic/` files in
-the layout `ScannetDataset` expects. Colour is decoded and depth PNGs
-written without Pillow (`data/codec.py`, `utils/visualization.py`);
-re-encoding colour as JPEG needs an encoder the port does not have
-(ROADMAP Queue 1, item 11), so `export_color_images` raises.
+the layout `ScannetDataset` expects. Colour is decoded, resized and
+re-encoded as JPEG, and depth PNGs written, without Pillow
+(`data/codec.py`, `utils/visualization.py`): the JPEGs are the bytes
+Pillow's default save writes.
 """
 
 from __future__ import annotations
@@ -108,12 +108,19 @@ class SensorData:
 
     def export_color_images(self, output_path: str, frame_skip: int = 1,
                             image_size: Optional[tuple] = None):
-        """Would write each frame's colour as `frame-XXXXXX.color.jpg`:
-        the port has no JPEG encoder yet (ROADMAP Queue 1, item 11)."""
-        raise NotImplementedError(
-            "export_color_images re-encodes colour as JPEG, and the port "
-            "has no JPEG encoder yet (ROADMAP Queue 1, item 11); "
-            "`RGBDFrame.decompress_color` decodes the frames")
+        """Writes every `frame_skip`-th frame's colour as
+        `frame-XXXXXX.color.jpg` (quality 75), resized bilinearly to
+        `image_size` = (height, width) when given."""
+        os.makedirs(output_path, exist_ok=True)
+        for i in range(0, len(self.frames), frame_skip):
+            color = self.frames[i].decompress_color(
+                self.color_compression_type)
+            if image_size is not None:
+                color = codec.resize(color, image_size[0], image_size[1],
+                                     "bilinear")
+            with open(os.path.join(output_path,
+                                   f"frame-{i:06d}.color.jpg"), "wb") as f:
+                f.write(codec.encode_jpeg(color))
 
     def export_poses(self, output_path: str, frame_skip: int = 1):
         os.makedirs(output_path, exist_ok=True)

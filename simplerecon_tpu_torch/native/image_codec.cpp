@@ -1,5 +1,6 @@
 // Image decoding and resampling for the file-backed dataset readers: the
-// PNG row filters, a baseline JPEG decoder and Pillow's two resamplers.
+// PNG row filters, a baseline JPEG decoder and encoder and Pillow's two
+// resamplers.
 //
 // Built with g++ at first use and bound with ctypes
 // (`simplerecon_tpu_torch/data/codec.py`); ctypes releases the GIL, so the
@@ -16,6 +17,9 @@
 // the h2v1 and h2v2 triangle filters with their alternating rounding
 // biases, the first and last chroma row repeated as context) and the
 // fixed-point YCbCr -> RGB tables (jdcolor.c, SCALEBITS 16).
+//
+// JPEG encoding: baseline, 4:2:0, as libjpeg-turbo's defaults write it
+// (see the encoder's section).
 //
 // Resize: Pillow's BILINEAR (the filter's support widened by the scale
 // when shrinking, horizontal pass first, coefficients in fixed point with
@@ -807,6 +811,381 @@ int jpeg_render(Jpeg& j, uint8_t* out) {
 }
 
 // ----------------------------------------------------------------------
+// JPEG encoder
+// ----------------------------------------------------------------------
+
+// Baseline JPEG as libjpeg-turbo's defaults write it, which is what
+// Pillow's `Image.save(path)` runs: JFIF, RGB -> YCbCr by jccolor.c's
+// fixed-point tables, 4:2:0 by jcsample.c's h2v2 box filter (rounding
+// biases 1, 2 alternating along a row), the image padded to whole MCUs by
+// repeating its last column and row (jcsample.c, jcprepct.c) and blocks
+// wholly outside it coded as their neighbour's DC (jccoefct.c), the
+// `islow` forward DCT (jfdctint.c), quantisation by the IJG tables scaled
+// to a quality (jcparam.c) with rounding to nearest, and the standard
+// Huffman tables of the JPEG specification's annex K.
+
+const uint8_t kStdLumaQuant[64] = {
+    16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,  58,  60,  55,
+    14, 13, 16, 24, 40,  57,  69,  56,  14, 17, 22, 29, 51,  87,  80,  62,
+    18, 22, 37, 56, 68,  109, 103, 77,  24, 35, 55, 64, 81,  104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99};
+const uint8_t kStdChromaQuant[64] = {
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
+
+// annex K.3: code counts by length (1..16), then the values
+const uint8_t kDcLumaBits[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0,
+                                 0, 0};
+const uint8_t kDcChromaBits[16] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0,
+                                   0, 0, 0};
+const uint8_t kDcValues[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcLumaBits[16] = {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0,
+                                 1, 0x7d};
+const uint8_t kAcLumaValues[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kAcChromaBits[16] = {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1,
+                                   2, 0x77};
+const uint8_t kAcChromaValues[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+// jcparam.c: jpeg_quality_scaling and jpeg_add_quant_table, baseline
+void scaled_quant(const uint8_t* basic, int quality, uint16_t* out) {
+  quality = quality < 1 ? 1 : (quality > 100 ? 100 : quality);
+  int scale = quality < 50 ? 5000 / quality : 200 - quality * 2;
+  for (int i = 0; i < 64; ++i) {
+    int v = (basic[i] * scale + 50) / 100;
+    out[i] = (uint16_t)(v < 1 ? 1 : (v > 255 ? 255 : v));
+  }
+}
+
+struct HuffCodes {
+  uint16_t code[256];
+  uint8_t size[256];
+};
+
+// jchuff.c: jpeg_make_c_derived_tbl
+HuffCodes make_codes(const uint8_t bits[16], const uint8_t* values) {
+  HuffCodes h{};
+  int code = 0, k = 0;
+  for (int len = 1; len <= 16; ++len) {
+    for (int i = 0; i < bits[len - 1]; ++i, ++k) {
+      h.code[values[k]] = (uint16_t)code++;
+      h.size[values[k]] = (uint8_t)len;
+    }
+    code <<= 1;
+  }
+  return h;
+}
+
+struct BitWriter {
+  std::vector<uint8_t>& out;
+  uint32_t acc = 0;
+  int nbits = 0;
+  explicit BitWriter(std::vector<uint8_t>& o) : out(o) {}
+  void put(uint32_t bits, int n) {
+    acc = (acc << n) | (bits & ((1u << n) - 1));
+    nbits += n;
+    while (nbits >= 8) {
+      uint8_t byte = (uint8_t)(acc >> (nbits - 8));
+      out.push_back(byte);
+      if (byte == 0xFF) out.push_back(0);     // stuffing
+      nbits -= 8;
+    }
+    acc &= (1u << nbits) - 1;
+  }
+  void flush() {                             // pad with 1 bits
+    if (nbits > 0) put(0x7F, 8 - nbits);
+  }
+};
+
+// jfdctint.c: jpeg_fdct_islow, output scaled up by 8
+void fdct_islow(int32_t* data) {
+  int32_t* p = data;
+  for (int r = 0; r < 8; ++r, p += 8) {
+    int64_t tmp0 = p[0] + p[7], tmp7 = p[0] - p[7];
+    int64_t tmp1 = p[1] + p[6], tmp6 = p[1] - p[6];
+    int64_t tmp2 = p[2] + p[5], tmp5 = p[2] - p[5];
+    int64_t tmp3 = p[3] + p[4], tmp4 = p[3] - p[4];
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    p[0] = (int32_t)((tmp10 + tmp11) * (1 << PASS1_BITS));
+    p[4] = (int32_t)((tmp10 - tmp11) * (1 << PASS1_BITS));
+    int64_t z1 = (tmp12 + tmp13) * FIX_0_541196100;
+    p[2] = (int32_t)descale(z1 + tmp13 * FIX_0_765366865,
+                            CONST_BITS - PASS1_BITS);
+    p[6] = (int32_t)descale(z1 - tmp12 * FIX_1_847759065,
+                            CONST_BITS - PASS1_BITS);
+    z1 = tmp4 + tmp7;
+    int64_t z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7;
+    int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp4 *= FIX_0_298631336;
+    tmp5 *= FIX_2_053119869;
+    tmp6 *= FIX_3_072711026;
+    tmp7 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    p[7] = (int32_t)descale(tmp4 + z1 + z3, CONST_BITS - PASS1_BITS);
+    p[5] = (int32_t)descale(tmp5 + z2 + z4, CONST_BITS - PASS1_BITS);
+    p[3] = (int32_t)descale(tmp6 + z2 + z3, CONST_BITS - PASS1_BITS);
+    p[1] = (int32_t)descale(tmp7 + z1 + z4, CONST_BITS - PASS1_BITS);
+  }
+  p = data;
+  for (int c = 0; c < 8; ++c, ++p) {
+    int64_t tmp0 = p[0] + p[56], tmp7 = p[0] - p[56];
+    int64_t tmp1 = p[8] + p[48], tmp6 = p[8] - p[48];
+    int64_t tmp2 = p[16] + p[40], tmp5 = p[16] - p[40];
+    int64_t tmp3 = p[24] + p[32], tmp4 = p[24] - p[32];
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    p[0] = (int32_t)descale(tmp10 + tmp11, PASS1_BITS);
+    p[32] = (int32_t)descale(tmp10 - tmp11, PASS1_BITS);
+    int64_t z1 = (tmp12 + tmp13) * FIX_0_541196100;
+    p[16] = (int32_t)descale(z1 + tmp13 * FIX_0_765366865,
+                             CONST_BITS + PASS1_BITS);
+    p[48] = (int32_t)descale(z1 - tmp12 * FIX_1_847759065,
+                             CONST_BITS + PASS1_BITS);
+    z1 = tmp4 + tmp7;
+    int64_t z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7;
+    int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp4 *= FIX_0_298631336;
+    tmp5 *= FIX_2_053119869;
+    tmp6 *= FIX_3_072711026;
+    tmp7 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    p[56] = (int32_t)descale(tmp4 + z1 + z3, CONST_BITS + PASS1_BITS);
+    p[40] = (int32_t)descale(tmp5 + z2 + z4, CONST_BITS + PASS1_BITS);
+    p[24] = (int32_t)descale(tmp6 + z2 + z3, CONST_BITS + PASS1_BITS);
+    p[8] = (int32_t)descale(tmp7 + z1 + z4, CONST_BITS + PASS1_BITS);
+  }
+}
+
+// One plane padded to whole blocks: `w` x `h` samples, row-major.
+struct Plane {
+  int w, h;
+  std::vector<uint8_t> px;
+};
+
+// The quantised coefficients (natural order) of the 8x8 block at (bx, by)
+// of `p`: the DCT of the samples less 128, each divided by 8 q with
+// rounding to nearest (jcdctmgr.c: quantize).
+void forward_block(const Plane& p, int bx, int by, const uint16_t* quant,
+                   int16_t* out) {
+  int32_t d[64];
+  for (int y = 0; y < 8; ++y) {
+    const uint8_t* row = &p.px[(size_t)(by * 8 + y) * p.w + bx * 8];
+    for (int x = 0; x < 8; ++x) d[y * 8 + x] = (int32_t)row[x] - 128;
+  }
+  fdct_islow(d);
+  for (int i = 0; i < 64; ++i) {
+    int32_t q = (int32_t)quant[i] << 3, v = d[i];
+    out[i] = (int16_t)(v < 0 ? -((-v + (q >> 1)) / q) : (v + (q >> 1)) / q);
+  }
+}
+
+void encode_block(BitWriter& bw, const int16_t* block, int& last_dc,
+                  const HuffCodes& dc, const HuffCodes& ac) {
+  auto magnitude = [](int v) {
+    int n = 0;
+    for (int a = v < 0 ? -v : v; a; a >>= 1) ++n;
+    return n;
+  };
+  int diff = block[0] - last_dc;
+  last_dc = block[0];
+  int n = magnitude(diff);
+  bw.put(dc.code[n], dc.size[n]);
+  if (n) bw.put((uint32_t)(diff < 0 ? diff - 1 : diff), n);
+  int run = 0;
+  for (int k = 1; k < 64; ++k) {
+    int v = block[kNaturalOrder[k]];
+    if (v == 0) {
+      ++run;
+      continue;
+    }
+    for (; run > 15; run -= 16) bw.put(ac.code[0xF0], ac.size[0xF0]);
+    n = magnitude(v);
+    int sym = (run << 4) | n;
+    bw.put(ac.code[sym], ac.size[sym]);
+    bw.put((uint32_t)(v < 0 ? v - 1 : v), n);
+    run = 0;
+  }
+  if (run) bw.put(ac.code[0], ac.size[0]);
+}
+
+void put16(std::vector<uint8_t>& o, int v) {
+  o.push_back((uint8_t)(v >> 8));
+  o.push_back((uint8_t)v);
+}
+
+void put_dht(std::vector<uint8_t>& o, int cls_id, const uint8_t bits[16],
+             const uint8_t* values) {
+  int n = 0;
+  for (int i = 0; i < 16; ++i) n += bits[i];
+  o.insert(o.end(), {0xFF, 0xC4});
+  put16(o, 2 + 1 + 16 + n);
+  o.push_back((uint8_t)cls_id);
+  o.insert(o.end(), bits, bits + 16);
+  o.insert(o.end(), values, values + n);
+}
+
+std::vector<uint8_t> encode_jpeg_rgb(const uint8_t* rgb, int h, int w,
+                                     int quality) {
+  // jccolor.c: rgb_ycc_convert, SCALEBITS 16
+  auto fix = [](double x) { return (int32_t)(x * 65536 + 0.5); };
+  const int32_t half = 1 << 15, cbcr = 128 << 16;
+  const int mcus_x = (w + 15) / 16, mcus_y = (h + 15) / 16;
+  const int luma_bw = (w + 7) / 8, luma_bh = (h + 7) / 8;
+  const int h2 = h + (h & 1);                // rows padded to even
+  Plane ys{luma_bw * 8, luma_bh * 8, {}}, cb{mcus_x * 8, mcus_y * 8, {}},
+      cr{mcus_x * 8, mcus_y * 8, {}};
+  ys.px.resize((size_t)ys.w * ys.h);
+  cb.px.resize((size_t)cb.w * cb.h);
+  cr.px.resize((size_t)cr.w * cr.h);
+  // the colour-converted rows, the last column repeated to the chroma
+  // MCU width (jcsample.c: expand_right_edge)
+  const int wide = mcus_x * 16;
+  std::vector<uint8_t> yrow(wide), cbrows(2 * (size_t)wide),
+      crrows(2 * (size_t)wide);
+  auto convert = [&](int y, uint8_t* yo, uint8_t* bo, uint8_t* ro) {
+    const uint8_t* in = rgb + (size_t)y * w * 3;
+    for (int x = 0; x < w; ++x) {
+      int32_t r = in[3 * x], g = in[3 * x + 1], b = in[3 * x + 2];
+      yo[x] = (uint8_t)((fix(0.29900) * r + fix(0.58700) * g +
+                         fix(0.11400) * b + half) >> 16);
+      bo[x] = (uint8_t)((-fix(0.16874) * r - fix(0.33126) * g +
+                         fix(0.5) * b + cbcr + half - 1) >> 16);
+      ro[x] = (uint8_t)((fix(0.5) * r - fix(0.41869) * g -
+                         fix(0.08131) * b + cbcr + half - 1) >> 16);
+    }
+    for (int x = w; x < wide; ++x) {
+      yo[x] = yo[w - 1];
+      bo[x] = bo[w - 1];
+      ro[x] = ro[w - 1];
+    }
+  };
+  for (int y = 0; y < h2; y += 2) {
+    for (int k = 0; k < 2; ++k) {
+      int src = y + k < h ? y + k : h - 1;   // jcprepct.c: last row again
+      convert(src, yrow.data(), &cbrows[(size_t)k * wide],
+              &crrows[(size_t)k * wide]);
+      if (y + k < ys.h)
+        std::memcpy(&ys.px[(size_t)(y + k) * ys.w], yrow.data(), ys.w);
+    }
+    // jcsample.c: h2v2_downsample
+    uint8_t* bo = &cb.px[(size_t)(y / 2) * cb.w];
+    uint8_t* ro = &cr.px[(size_t)(y / 2) * cr.w];
+    int bias = 1;
+    for (int x = 0; x < cb.w; ++x) {
+      const uint8_t *b0 = &cbrows[2 * x], *b1 = &cbrows[wide + 2 * x];
+      const uint8_t *r0 = &crrows[2 * x], *r1 = &crrows[wide + 2 * x];
+      bo[x] = (uint8_t)((b0[0] + b0[1] + b1[0] + b1[1] + bias) >> 2);
+      ro[x] = (uint8_t)((r0[0] + r0[1] + r1[0] + r1[1] + bias) >> 2);
+      bias ^= 3;
+    }
+  }
+  // the last rows repeated to whole blocks (jcprepct.c: expand_bottom_edge)
+  for (int y = h2; y < ys.h; ++y)
+    std::memcpy(&ys.px[(size_t)y * ys.w], &ys.px[(size_t)(h2 - 1) * ys.w],
+                ys.w);
+  for (Plane* c : {&cb, &cr})
+    for (int y = h2 / 2; y < c->h; ++y)
+      std::memcpy(&c->px[(size_t)y * c->w],
+                  &c->px[(size_t)(h2 / 2 - 1) * c->w], c->w);
+
+  uint16_t qy[64], qc[64];
+  scaled_quant(kStdLumaQuant, quality, qy);
+  scaled_quant(kStdChromaQuant, quality, qc);
+  std::vector<uint8_t> out;
+  out.reserve((size_t)w * h / 2 + 1024);
+  out.insert(out.end(), {0xFF, 0xD8,                           // SOI
+                         0xFF, 0xE0, 0, 16, 'J', 'F', 'I', 'F', 0,  // APP0
+                         1, 1, 0, 0, 1, 0, 1, 0, 0});
+  for (int t = 0; t < 2; ++t) {                                // DQT
+    const uint16_t* q = t ? qc : qy;
+    out.insert(out.end(), {0xFF, 0xDB, 0, 67, (uint8_t)t});
+    for (int k = 0; k < 64; ++k) out.push_back((uint8_t)q[kNaturalOrder[k]]);
+  }
+  out.insert(out.end(), {0xFF, 0xC0, 0, 17, 8});               // SOF0
+  put16(out, h);
+  put16(out, w);
+  out.insert(out.end(), {3, 1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1});
+  put_dht(out, 0x00, kDcLumaBits, kDcValues);
+  put_dht(out, 0x10, kAcLumaBits, kAcLumaValues);
+  put_dht(out, 0x01, kDcChromaBits, kDcValues);
+  put_dht(out, 0x11, kAcChromaBits, kAcChromaValues);
+  out.insert(out.end(), {0xFF, 0xDA, 0, 12, 3, 1, 0x00, 2, 0x11, 3, 0x11,
+                         0, 63, 0});                            // SOS
+
+  const HuffCodes dcy = make_codes(kDcLumaBits, kDcValues),
+                  acy = make_codes(kAcLumaBits, kAcLumaValues),
+                  dcc = make_codes(kDcChromaBits, kDcValues),
+                  acc = make_codes(kAcChromaBits, kAcChromaValues);
+  BitWriter bw(out);
+  int dc_y = 0, dc_cb = 0, dc_cr = 0;
+  int16_t blocks[4][64], chroma[64];
+  for (int my = 0; my < mcus_y; ++my) {
+    for (int mx = 0; mx < mcus_x; ++mx) {
+      for (int k = 0; k < 4; ++k) {
+        int bx = 2 * mx + (k & 1), by = 2 * my + (k >> 1);
+        if (by >= luma_bh) {         // a dummy row: the previous block's DC
+          std::memset(blocks[k], 0, sizeof(blocks[k]));
+          blocks[k][0] = blocks[(k >> 1) * 2 - 1][0];
+        } else if (bx >= luma_bw) {  // a dummy column: its left block's DC
+          std::memset(blocks[k], 0, sizeof(blocks[k]));
+          blocks[k][0] = blocks[k - 1][0];
+        } else {
+          forward_block(ys, bx, by, qy, blocks[k]);
+        }
+        encode_block(bw, blocks[k], dc_y, dcy, acy);
+      }
+      forward_block(cb, mx, my, qc, chroma);
+      encode_block(bw, chroma, dc_cb, dcc, acc);
+      forward_block(cr, mx, my, qc, chroma);
+      encode_block(bw, chroma, dc_cr, dcc, acc);
+    }
+  }
+  bw.flush();
+  out.insert(out.end(), {0xFF, 0xD9});                         // EOI
+  return out;
+}
+
+// ----------------------------------------------------------------------
 // Pillow's resamplers (libImaging/Resample.c, Geometry.c)
 // ----------------------------------------------------------------------
 
@@ -933,6 +1312,17 @@ int jpeg_decode(const uint8_t* data, int64_t len, uint8_t* out,
   if (err) return err;
   if ((int64_t)j.width * j.height * j.ncomp > capacity) return JPEG_CAPACITY;
   return jpeg_render(j, out);
+}
+
+// Encodes an (h, w, 3) RGB image as a baseline JPEG of `quality` (1-100)
+// into `out` (`capacity` bytes). Returns the file's length, or -1 when it
+// does not fit.
+int64_t jpeg_encode(const uint8_t* rgb, int h, int w, int quality,
+                    uint8_t* out, int64_t capacity) {
+  std::vector<uint8_t> file = encode_jpeg_rgb(rgb, h, w, quality);
+  if ((int64_t)file.size() > capacity) return -1;
+  std::memcpy(out, file.data(), file.size());
+  return (int64_t)file.size();
 }
 
 // Pillow's BILINEAR resize of an 8-bit (in_h, in_w, channels) image to

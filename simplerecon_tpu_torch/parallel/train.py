@@ -1,8 +1,16 @@
-"""The single-device training step (counterpart of
-`simplerecon_tpu/parallel/train.py`): AdamW with the reference's stepped
-learning rate, optional global-norm clipping, and a skipped update on a
-non-finite gradient; the horizontal-flip coin; losses from the predicted
-depth and normals.
+"""The training step (counterpart of `simplerecon_tpu/parallel/train.py`):
+AdamW with the reference's stepped learning rate, optional global-norm
+clipping, and a skipped update on a non-finite gradient; the
+horizontal-flip coin; losses from the predicted depth and normals.
+
+`train_step` runs on one device. `ddp_train_step` is the JAX package's
+shard_map step (`_make_shardmap_train_step`) over a process group: each
+rank runs forward and backward on its rows of the global batch (so the
+sweep's kernels run once a rank), DistributedDataParallel averages the
+gradients during the backward, every rank applies the same update, and
+the step then averages the batch norms' running statistics and the
+logged losses over the ranks, as the JAX step's `pmean`s do. The loss is
+the mean of the ranks' masked means, as there.
 
 Parameters and optimizer state are float32; with a bf16 model the
 convolutions run under autocast and the sweep in bf16, while pose math
@@ -24,10 +32,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from simplerecon_tpu_torch import losses as loss_lib
@@ -243,6 +252,96 @@ def train_step(model: nn.Module, optimizer: Optimizer, batch: Dict,
     loss_dict = loss_and_backward(model, batch, flip)
     grad_norm = optimizer.step()
     metrics = {key: value.detach() for key, value in loss_dict.items()}
+    metrics["grad_norm"] = grad_norm
+    return metrics
+
+
+def wrap_ddp(model: nn.Module) -> nn.Module:
+    """`model` (on this rank's device) as DistributedDataParallel, which
+    averages the gradients over the ranks during the backward. Buffers
+    are not broadcast from rank 0 at each forward: the step averages the
+    running statistics itself."""
+    from torch.nn.parallel import DistributedDataParallel
+    device = next(model.parameters()).device
+    return DistributedDataParallel(
+        model, device_ids=[device] if device.type == "cuda" else None,
+        broadcast_buffers=False)
+
+
+def running_statistics(model: nn.Module) -> list:
+    """The batch norms' running means and variances."""
+    return [buf for name, buf in model.named_buffers()
+            if name.endswith(("running_mean", "running_var"))]
+
+
+def mean_over_ranks_(tensors: list) -> None:
+    """Replaces each tensor by its mean over the ranks, in one
+    all-reduce; every rank gets the same bits."""
+    if not tensors:
+        return
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat)
+    flat /= dist.get_world_size()
+    offset = 0
+    for t in tensors:
+        n = t.numel()
+        t.copy_(flat[offset:offset + n].view_as(t))
+        offset += n
+
+
+def parity_metrics(model: nn.Module, batch: Dict) -> Dict[str, torch.Tensor]:
+    """The JAX step's eval-mode self-check: the loss without flip, at the
+    current weights and running statistics, as the mean over the first
+    two ranks of their own rows' losses (`parity_loss_sharded`) and on
+    those two ranks' rows gathered into one batch
+    (`parity_loss_global`). A missing collective or a wrong mean shows as
+    a gap between the two."""
+    world = dist.get_world_size()
+    pair = min(2, world)
+    tensors = [(part, key) for part, data in batch.items()
+               for key, value in data.items()
+               if isinstance(value, torch.Tensor)]
+    gathered = {part: {} for part in batch}
+    for part, key in tensors:
+        value = batch[part][key].contiguous()
+        parts = [torch.empty_like(value) for _ in range(world)]
+        dist.all_gather(parts, value)
+        gathered[part][key] = torch.cat(parts[:pair])
+    local, _ = eval_step(model, batch)
+    joint, _ = eval_step(model, gathered)
+    selected = local["loss"].detach().float() * float(dist.get_rank() < pair)
+    dist.all_reduce(selected)
+    return {"parity_loss_sharded": selected / pair,
+            "parity_loss_global": joint["loss"].detach().float()}
+
+
+def ddp_train_step(ddp_model: nn.Module, optimizer: Optimizer, batch: Dict,
+                   generator: torch.Generator, flip: Optional[bool] = None,
+                   parity: bool = False) -> Dict[str, torch.Tensor]:
+    """One data-parallel training step on this rank's rows `batch`:
+    `ddp_model` is `wrap_ddp`'s wrapper. The flip coin comes from
+    `generator`, seeded alike on every rank, unless `flip` is given;
+    forward and losses in train mode, backward (DistributedDataParallel
+    averages the gradients), one optimizer update from the averaged
+    gradients (so every rank takes or skips it alike), then the batch
+    norms' running statistics and the losses averaged over the ranks.
+    Parameters stay the same bits on every rank. With `parity`, the
+    metrics carry `parity_metrics` of the weights before the update.
+    Returns the averaged loss dictionary and `grad_norm`."""
+    model = ddp_model.module
+    metrics = parity_metrics(model, batch) if parity else {}
+    coin = flip_coin(generator)
+    flip = coin if flip is None else flip
+    model.train()
+    optimizer.zero_grad()
+    loss_dict = loss_and_backward(ddp_model, batch, flip)
+    grad_norm = optimizer.step()
+    with torch.no_grad():
+        mean_over_ranks_(running_statistics(model))
+        losses = {key: value.detach().float().clone()
+                  for key, value in loss_dict.items()}
+        mean_over_ranks_(list(losses.values()))
+    metrics.update(losses)
     metrics["grad_norm"] = grad_norm
     return metrics
 

@@ -16,7 +16,10 @@ the device; data, averaging, marching cubes and PLY writing on the host.
 
 Runs on the CUDA card; `main(opts, device="cpu")` runs on the CPU.
 Without `--load_weights_from_checkpoint` the model's weights are drawn
-from `opts.random_seed`.
+from `opts.random_seed`. With `--data_parallel_eval` each batch is split
+over a replica of the model on each visible card (`make_forward_fn`;
+`main(opts, devices=[...])` names the devices, which may repeat), as the
+JAX CLI splits it over its devices.
 """
 
 from __future__ import annotations
@@ -49,10 +52,17 @@ MODEL_FIELDS = ("matching_scale", "matching_num_depth_bins",
                 "cv_encoder_type")
 
 
-def make_forward_fn(model):
+def make_forward_fn(model, devices=None):
     """Inference forward in eval mode, under `torch.inference_mode()`,
     with the model's own autocast: the depth at s0, the lowest-cost depth
-    and the overall mask."""
+    and the overall mask.
+
+    With `devices` (more than one), the data-parallel forward (the JAX
+    `make_sharded_forward`): a replica of `model` on each distinct
+    device; a batch is padded to a multiple of the device count by
+    repeating its last element, cut into equal shards in order, each run
+    on its device, and the outputs gathered in order onto the first
+    device and cut back to the batch."""
     model.eval()
 
     def forward(cur_data, src_data):
@@ -60,7 +70,46 @@ def make_forward_fn(model):
             outputs = model(cur_data, src_data, flip=False, return_mask=True)
         return {k: outputs[k] for k in _FORWARD_KEYS}
 
-    return forward
+    if devices is None or len(devices) < 2:
+        return forward
+    import copy
+    devices = [torch.device(d) for d in devices]
+    replicas = {}
+    for device in devices:
+        if device not in replicas:
+            replica = model if next(model.parameters()).device == device \
+                else copy.deepcopy(model).to(device)
+            replicas[device] = replica.eval()
+    n = len(devices)
+
+    def sharded(cur_data, src_data):
+        b = cur_data["image_b3hw"].shape[0]
+        pad = (-b) % n
+        rows = (b + pad) // n
+
+        def shard(data, i, device):
+            out = {}
+            for key, value in data.items():
+                if not isinstance(value, torch.Tensor):
+                    continue
+                if pad:
+                    value = torch.cat([value, value[-1:].expand(
+                        pad, *value.shape[1:])])
+                out[key] = value[i * rows:(i + 1) * rows].to(
+                    device, non_blocking=True)
+            return out
+
+        parts = []
+        with torch.inference_mode():
+            for i, device in enumerate(devices):
+                outputs = replicas[device](
+                    shard(cur_data, i, device), shard(src_data, i, device),
+                    flip=False, return_mask=True)
+                parts.append({k: outputs[k] for k in _FORWARD_KEYS})
+            return {k: torch.cat([p[k].to(devices[0]) for p in parts])[:b]
+                    for k in _FORWARD_KEYS}
+
+    return sharded
 
 
 def upsample_nearest(depth_bhw, h: int, w: int):
@@ -144,10 +193,19 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
-def main(opts: Options, device=None):
+def main(opts: Options, device=None, devices=None):
     """Runs the evaluation of `opts` on `device` (the CUDA card unless
-    another is given). Returns the (frame, scene) `ResultsAverager`s; each
-    has `run_stats`, the seconds spent in each stage and counts."""
+    another is given). With `opts.data_parallel_eval` the forward is split
+    over `devices` (by default every visible card), the first of which
+    holds the batches, the metrics and the fusion. Returns the (frame,
+    scene) `ResultsAverager`s; each has `run_stats`, the seconds spent in
+    each stage and counts."""
+    if opts.data_parallel_eval and devices is None and device is None:
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    if opts.data_parallel_eval and devices:
+        device = devices[0]
+    else:
+        devices = None
     device = resolve_device(device)
     results_path = os.path.join(opts.output_base_path, opts.name,
                                 opts.dataset, opts.frame_tuple_type)
@@ -164,7 +222,7 @@ def main(opts: Options, device=None):
         opts.single_debug_scan_id)
 
     model = load_model(opts, device)
-    forward = make_forward_fn(model)
+    forward = make_forward_fn(model, devices)
 
     all_frame_avg = ResultsAverager(opts.name, "frame metrics")
     all_scene_avg = ResultsAverager(opts.name, "scene metrics")

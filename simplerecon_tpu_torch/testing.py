@@ -628,3 +628,267 @@ def compare_scan_depths(scan_dir: str, synthetic_dir: str) -> dict:
             same = same and g.tobytes() == w.tobytes()
     assert paths, synthetic_dir
     return dict(frames=len(paths), depth_rel=worst, same_bits=same)
+
+
+def ddp_steps(rank: int, world: int, init_file: str, out_dir: str, opts,
+              seed: int, batch: dict, flips, device_type: str = "cpu",
+              backend=None, parity: bool = False,
+              spread: bool = False) -> None:
+    """Rank `rank` of a data-parallel run of `len(flips)` training steps
+    (`parallel/train.py::ddp_train_step`) on its rows of the global numpy
+    `batch`, from the model seeded with `seed` (and, with `spread`, put
+    through `spread_outputs_` with that seed); a flip of None draws the
+    coin from a generator seeded with 0. Writes to
+    `<out_dir>/rank<rank>.pt`: each step's metrics, the ms of each step
+    (host clock after a synchronize), the final state dict on the CPU,
+    the kernels' launches in the steps and the card's peak memory
+    (bytes). For `torch.multiprocessing.spawn`."""
+    import time
+    from simplerecon_tpu_torch.models.depth_model import build_depth_model
+    from simplerecon_tpu_torch.ops import kernel_wrappers, launch_counts
+    from simplerecon_tpu_torch.parallel import mesh
+    from simplerecon_tpu_torch.parallel import train
+    if device_type == "cpu":
+        torch.set_num_threads(1)
+    device = mesh.rank_device(rank, world, device_type, backend)
+    mesh.init_process_group(rank, world, init_file, device, backend)
+    try:
+        model = build_depth_model(opts, device=device, seed=seed)
+        if spread:
+            spread_outputs_(model, seed=seed)
+        optimizer = train.make_optimizer(opts, model)
+        ddp = train.wrap_ddp(model)
+        shard = train.batch_to_device(mesh.shard_batch(batch, rank, world),
+                                      device)
+        generator = torch.Generator().manual_seed(0)
+        sync = torch.cuda.synchronize if device.type == "cuda" else (
+            lambda: None)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        for fn in kernel_wrappers():
+            fn.launches = 0
+        metrics, step_ms = [], []
+        for flip in flips:
+            sync()
+            t0 = time.perf_counter()
+            out = train.ddp_train_step(ddp, optimizer, shard, generator,
+                                       flip=flip, parity=parity)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(v) for k, v in out.items()})
+        torch.save({"metrics": metrics, "step_ms": step_ms,
+                    "launches": launch_counts(),
+                    "peak_memory_bytes": (
+                        torch.cuda.max_memory_allocated(device)
+                        if device.type == "cuda" else 0),
+                    "state_dict": {k: v.detach().cpu().clone()
+                                   for k, v in model.state_dict().items()}},
+                   f"{out_dir}/rank{rank}.pt")
+    finally:
+        mesh.destroy_process_group()
+
+
+def run_ddp_steps(world: int, out_dir: str, opts, seed: int, batch: dict,
+                  flips, device_type: str = "cpu", backend=None,
+                  parity: bool = False, spread: bool = False,
+                  meanwhile=None, timeout: float = 900.0):
+    """`ddp_steps` on `world` ranks, one process each; returns what each
+    rank wrote (and deletes its file), in rank order, or, with
+    `meanwhile`, (that, the result of `meanwhile()`, which the calling
+    process runs while the ranks do). A failed rank raises here, and
+    ranks still running after `timeout` seconds are stopped and raise
+    `TimeoutError`."""
+    import os
+    import time
+    import torch.multiprocessing as mp
+    os.makedirs(out_dir, exist_ok=True)
+    init_file = os.path.join(out_dir, "rendezvous")
+    if os.path.exists(init_file):
+        os.remove(init_file)
+    ranks = mp.spawn(ddp_steps, nprocs=world, join=False, args=(
+        world, init_file, out_dir, opts, seed, batch, list(flips),
+        device_type, backend, parity, spread))
+    deadline = time.monotonic() + timeout
+    try:
+        extra = meanwhile() if meanwhile is not None else None
+        while not ranks.join(timeout=1):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"DDP ranks still running after {timeout} s")
+    finally:
+        for process in ranks.processes:
+            if process.is_alive():
+                process.terminate()
+    results = []
+    for rank in range(world):
+        path = os.path.join(out_dir, f"rank{rank}.pt")
+        results.append(torch.load(path))
+        os.remove(path)         # a state dict of the whole model
+    return results if meanwhile is None else (results, extra)
+
+
+
+def shard_mean_steps(opts, batch: dict, world: int, steps: int, device,
+                     seed: int = 0) -> tuple:
+    """The single-process reference of `world` ranks' `ddp_steps` (coins
+    drawn, not given): the model seeded with `seed`, each step's coin
+    from one generator seeded with 0, each rank's rows of the numpy
+    `batch` through forward and backward from the same state, the mean
+    of their gradients (summed in rank order) through one optimizer
+    update, and the mean of their running statistics. Returns (each
+    step's mean losses and gradient norm, the final state dict)."""
+    from simplerecon_tpu_torch.models.depth_model import build_depth_model
+    from simplerecon_tpu_torch.parallel import mesh
+    from simplerecon_tpu_torch.parallel import train
+
+    def mean(values):
+        total = values[0]
+        for value in values[1:]:
+            total = total + value
+        return total / world
+
+    model = build_depth_model(opts, device=device, seed=seed)
+    optimizer = train.make_optimizer(opts, model)
+    generator = torch.Generator().manual_seed(0)
+    shards = [train.batch_to_device(mesh.shard_batch(batch, r, world),
+                                    device) for r in range(world)]
+    steps_out = []
+    for _ in range(steps):
+        flip = train.flip_coin(generator)
+        model.train()
+        before = {n: b.clone() for n, b in model.named_buffers()}
+        grads, stats, losses = [], [], []
+        for shard in shards:
+            for n, b in model.named_buffers():
+                b.copy_(before[n])
+            optimizer.zero_grad()
+            loss_dict = train.loss_and_backward(model, shard, flip)
+            losses.append({k: float(v.detach()) for k, v in loss_dict.items()})
+            grads.append([p.grad.detach().clone() for p in model.parameters()])
+            stats.append([b.clone() for b in train.running_statistics(model)])
+        for p, *shard_grads in zip(model.parameters(), *grads):
+            p.grad = mean(shard_grads)
+        norm = float(optimizer.step())
+        with torch.no_grad():
+            for b, *shard_stats in zip(train.running_statistics(model),
+                                       *stats):
+                b.copy_(mean(shard_stats))
+        steps_out.append(dict({k: sum(l[k] for l in losses) / world
+                               for k in losses[0]}, grad_norm=norm))
+        del grads, stats
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return steps_out, state
+
+
+def compare_ranks(ranks: list, want: list, ref: dict) -> dict:
+    """What `run_ddp_steps` gave against `shard_mean_steps`: whether every
+    rank holds rank 0's parameters, buffers and metrics bit for bit, the
+    relative L2 of rank 0's parameters and of its running statistics
+    from the reference's, the largest relative difference of a loss or
+    gradient norm, and whether all are the same bits."""
+    def rel_l2(keys):
+        num = sum(float(((first[k].double() - ref[k].double().cpu())
+                         ** 2).sum()) for k in keys)
+        den = sum(float((ref[k].double().cpu() ** 2).sum()) for k in keys)
+        return float(np.sqrt(num / max(den, 1e-30)))
+
+    first = ranks[0]["state_dict"]
+    ranks_equal = all(
+        list(r["state_dict"]) == list(first)
+        and all(torch.equal(r["state_dict"][k], first[k]) for k in first)
+        and r["metrics"] == ranks[0]["metrics"] for r in ranks[1:])
+    stat_keys = [k for k in ref if k.endswith(("running_mean",
+                                               "running_var"))]
+    params = [k for k, v in ref.items() if v.dtype.is_floating_point
+              and k not in stat_keys]
+    got = ranks[0]["metrics"]
+    return dict(
+        ranks_equal=ranks_equal, param_rel=rel_l2(params),
+        stat_rel=rel_l2(stat_keys),
+        loss_rel=max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+                     for g, w in zip(got, want) for k in w),
+        same_bits=all(torch.equal(first[k], ref[k].cpu()) for k in ref))
+
+def compare_depth_maps(got_dir: str, want_dir: str) -> dict:
+    """The cached depths of two eval runs: each depth map's relative L2,
+    the share of lowest-cost pixels on the same plane, and whether all
+    are the same bits."""
+    import glob
+    import os
+    import pickle
+    worst, agree, pixels, same = 0.0, 0, 0, True
+    paths = sorted(glob.glob(f"{want_dir}/*.pickle"))
+    for path in paths:
+        with open(path, "rb") as f:
+            want = pickle.load(f)
+        with open(f"{got_dir}/{os.path.basename(path)}", "rb") as f:
+            got = pickle.load(f)
+        g, w = got["depth_pred_s0_b1hw"], want["depth_pred_s0_b1hw"]
+        worst = max(worst, float(np.linalg.norm(g - w) / np.linalg.norm(w)))
+        gl, wl = got["lowest_cost_bhw"], want["lowest_cost_bhw"]
+        agree += int(np.isclose(gl, wl, rtol=1e-3).sum())
+        pixels += wl.size
+        same = same and g.tobytes() == w.tobytes() \
+            and gl.tobytes() == wl.tobytes()
+    if not paths:
+        raise FileNotFoundError(f"no cached depths under {want_dir}")
+    return dict(frames=len(paths), depth_l2=worst,
+                lowest_agree=agree / pixels, same_bits=same)
+
+
+def write_sens(path: str, colour_jpegs: list, depths: list,
+               colour_hw: tuple, depth_hw: tuple) -> None:
+    """Writes a ScanNet `.sens` file (version 4): identity calibration,
+    JPEG colour (the files' bytes as given), zlib-compressed uint16 depth
+    in millimetres (depth shift 1000), frame i posed at x = i metres."""
+    import struct
+    import zlib
+    with open(path, "wb") as f:
+        name = b"synthetic"
+        f.write(struct.pack("I", 4) + struct.pack("Q", len(name)) + name)
+        for _ in range(4):
+            f.write(struct.pack("f" * 16,
+                                *np.eye(4, dtype=np.float32).ravel()))
+        f.write(struct.pack("ii", 2, 1))            # JPEG colour, zlib depth
+        f.write(struct.pack("IIII", colour_hw[1], colour_hw[0], depth_hw[1],
+                            depth_hw[0]))
+        f.write(struct.pack("f", 1000.0) + struct.pack("Q", len(depths)))
+        for i, (jpeg, depth) in enumerate(zip(colour_jpegs, depths)):
+            pose = np.eye(4, dtype=np.float32)
+            pose[0, 3] = i
+            packed = zlib.compress(np.asarray(depth, np.uint16).tobytes())
+            f.write(struct.pack("f" * 16, *pose.ravel())
+                    + struct.pack("QQQQ", i, i, len(jpeg), len(packed)))
+            f.write(jpeg + packed)
+
+
+def write_ios_capture(scan_dir: str, frames_bgr: list, seed: int = 0
+                      ) -> None:
+    """Writes an ios-logger capture: `Frames.m4v` (mp4v through
+    `cv2.VideoWriter`, 30 fps) of the given frames, `Frames.txt` (a
+    comment line, then timestamp, frame, fx, fy, cx, cy a frame) and
+    `ARposes.txt` (a comment line, then 2n + 1 seeded poses, timestamp,
+    tx ty tz, qw qx qy qz, at other timestamps than the frames')."""
+    import os
+    import cv2
+    os.makedirs(scan_dir, exist_ok=True)
+    h, w = frames_bgr[0].shape[:2]
+    writer = cv2.VideoWriter(os.path.join(scan_dir, "Frames.m4v"),
+                             cv2.VideoWriter_fourcc(*"mp4v"), 30, (w, h))
+    for frame in frames_bgr:
+        writer.write(np.ascontiguousarray(frame, np.uint8))
+    writer.release()
+    n = len(frames_bgr)
+    with open(os.path.join(scan_dir, "Frames.txt"), "w") as f:
+        f.write("# timestamp, frame, fx, fy, cx, cy\n")
+        for i in range(n):
+            f.write(f"{0.1 * i + 0.013:.3f},{i},{500 + i}.5,{501 + i}.25,"
+                    f"{w / 2 + 0.5},{h / 2 - 0.25}\n")
+    rng = np.random.RandomState(seed)
+    with open(os.path.join(scan_dir, "ARposes.txt"), "w") as f:
+        f.write("# timestamp, tx, ty, tz, qw, qx, qy, qz\n")
+        for j in range(2 * n + 1):
+            q = rng.randn(4)
+            q /= np.linalg.norm(q)
+            t = rng.uniform(-1, 1, 3)
+            f.write(f"{0.05 * j:.3f}," + ",".join(f"{v:.6f}" for v in t)
+                    + "," + ",".join(f"{v:.6f}" for v in q) + "\n")

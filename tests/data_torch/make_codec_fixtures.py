@@ -7,7 +7,11 @@ decoder to:
   every 3 MCUs) and 4:2:0, and in grey;
 - a 968x1296 JPEG (ScanNet's colour size, 4:2:0) of the synthetic room;
 - 480x640 PNGs: a smooth 8-bit RGB image with 2 levels of noise, and
-  the synthetic room's 16-bit grey depth in millimetres.
+  the synthetic room's 16-bit grey depth in millimetres;
+- `jpeg_encode.json`: the SHA-256 of the JPEG file Pillow's default save
+  writes for the 968x1296 JPEG's pixels resized by BILINEAR to 480x640
+  (what a `.sens` colour export writes), which `chip_smoke.py` holds the
+  port's encoder to.
 
     python tests/data_torch/make_codec_fixtures.py
 """
@@ -78,8 +82,21 @@ def main():
     save("png_depth16_480x640.png", depth_mm, optimize=True)
     with open(os.path.join(HERE, "digests.json"), "w") as f:
         json.dump(files, f, indent=1, sort_keys=True)
+    write_encode_digest()
     sizes = {n: os.path.getsize(os.path.join(HERE, n)) for n in files}
     print(json.dumps(sizes), "total", sum(sizes.values()))
+
+
+def write_encode_digest(source: str = "jpeg_968x1296.jpg",
+                        size=(480, 640)):
+    image = Image.open(os.path.join(HERE, source)).convert("RGB")
+    image = image.resize((size[1], size[0]), Image.BILINEAR)
+    buf = io.BytesIO()
+    image.save(buf, format="JPEG")
+    with open(os.path.join(HERE, "jpeg_encode.json"), "w") as f:
+        json.dump({"source": source, "size": list(size), "quality": 75,
+                   "sha256": hashlib.sha256(buf.getvalue()).hexdigest()},
+                  f, indent=1, sort_keys=True)
 
 
 if __name__ == "__main__":

@@ -616,7 +616,7 @@ def test_train_cli_on_the_card(cuda, tmp_path):
             "--matching_num_depth_bins", "8", "--batch_size", "4",
             "--val_batch_size", "4", "--log_interval", "1",
             "--val_interval", "4", "--val_batches", "1", "--num_workers", "2",
-            "--log_dir", str(tmp_path), *extra])
+            "--num_devices", "1", "--log_dir", str(tmp_path), *extra])
 
     counters = (cuda_cv.fused_sweep, cuda_cv.fused_sweep_bwd,
                 cuda_cv.sweep_scatter)

@@ -14,6 +14,11 @@ package, on the CPU.
   the whole model costs over a minute of XLA compile on the CPU). The
   two packages draw the flip coin differently, so the port's
   `parallel.train.flip_coin` is patched to return the JAX CLI's coins.
+  The port's loader gives each item a random state of its own, from
+  (seed, epoch, index) (`data/loader.py::item_rng`), where the JAX
+  dataset draws every item's augmentation from one state its loader's
+  threads share; the JAX dataset is given the port's state for each
+  item, one item at a time.
   Held equal: the training and validation batches (numpy), the JSONL
   keys, the checkpoint layout (`checkpoints/step_2`, `best/step_2`, a
   state and `options.yaml` in each) and the options snapshot. Held close:
@@ -43,6 +48,7 @@ package, on the CPU.
 import json
 import os
 import shutil
+import threading
 
 import jax
 import numpy as np
@@ -63,6 +69,7 @@ from simplerecon_tpu.parallel.train import TrainState as JaxTrainState
 from simplerecon_tpu.utils import visualization as jviz
 from simplerecon_tpu.utils.convert_reference_checkpoint import \
     convert_state_dict
+from simplerecon_tpu_torch.data.loader import item_rng
 from simplerecon_tpu_torch.models.depth_model import build_depth_model
 from simplerecon_tpu_torch.models.matching_encoder import \
     ResnetMatchingEncoder
@@ -172,6 +179,16 @@ def runs(tmp_path_factory, monkeypatch_module):
                     yield batch
         return train_loader, Recorded()
 
+    jax_getitem = jsynthetic.SyntheticDataset.__getitem__
+    lock = threading.Lock()
+
+    def getitem(self, idx):
+        # both runs stay inside their first epoch
+        with lock:
+            self.rng = item_rng(opts.random_seed, 0, idx)
+            return jax_getitem(self, idx)
+
+    mp.setattr(jsynthetic.SyntheticDataset, "__getitem__", getitem)
     mp.setattr(jcli, "init_train_state", init_train_state)
     mp.setattr(jcli, "make_sharded_train_step", make_sharded_train_step)
     mp.setattr(jcli, "build_dataloaders", build_dataloaders)
