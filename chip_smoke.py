@@ -235,10 +235,11 @@ from simplerecon_tpu_torch.models.matching_encoder import \
 from simplerecon_tpu_torch.online import \
     OnlineSession, make_batch  # noqa: E402
 from simplerecon_tpu_torch.ops import (  # noqa: E402
-    _build, cuda_cv, early_sweeps, pool)
+    _build, cuda_cv, early_sweeps, launch_counts, pool)
 from simplerecon_tpu_torch.ops import cost_volume as cv_ops  # noqa: E402
 from simplerecon_tpu_torch.parallel import mesh, train  # noqa: E402
 from simplerecon_tpu_torch import native  # noqa: E402
+from simplerecon_tpu_torch import tracing  # noqa: E402
 from simplerecon_tpu_torch.data import codec, synthetic  # noqa: E402
 from simplerecon_tpu_torch.data.io import readlines  # noqa: E402
 from simplerecon_tpu_torch.data.scannet import ScannetDataset  # noqa: E402
@@ -367,12 +368,16 @@ COUNTERS = {"K1": cuda_cv.fused_sweep, "K2": cuda_cv.fused_sweep_bwd,
 
 
 def reset_launches():
-    for fn in COUNTERS.values():
-        fn.launches = 0
+    tracing.reset_counters()
+
+
+def launched(fn) -> int:
+    """The launches the wrapper `fn` has counted since the last reset."""
+    return launch_counts()[fn.__name__]
 
 
 def launches() -> dict:
-    return {name: fn.launches for name, fn in COUNTERS.items()}
+    return {name: launched(fn) for name, fn in COUNTERS.items()}
 
 
 def assert_launches(counts: dict, expected: dict):
@@ -472,12 +477,12 @@ def phase_kernel(device) -> dict:
              (torch.bfloat16,))):
         for dtype in dtypes:
             args = sweep_case(*shape, dtype=dtype, device=device, seed=1)
-            before = cuda_cv.fused_sweep.launches
+            before = launched(cuda_cv.fused_sweep)
             with torch.no_grad():
                 got = cuda_cv.fused_sweep(*args)
                 want = cuda_cv.fused_sweep_reference(*args)
             torch.cuda.synchronize()
-            assert cuda_cv.fused_sweep.launches == before + 1
+            assert launched(cuda_cv.fused_sweep) == before + 1
             b, k, h, w, c, d = shape
             assert got.shape == (b, d, h * w), got.shape
             assert torch.isfinite(got).all()
@@ -758,13 +763,13 @@ def check_scatter(shape, dtype, device, dot: bool, tag: str,
     for geometry in GEOMETRIES:
         args, grads = scatter_case(*shape, dtype=dtype, device=device,
                                    seed=1, dot=dot, geometry=geometry)
-        before = cuda_cv.sweep_scatter.launches
+        before = launched(cuda_cv.sweep_scatter)
         got = cuda_cv.sweep_scatter(*args, **grads)
         paths = cuda_cv.sweep_scatter.paths.tolist()
         again = cuda_cv.sweep_scatter(*args, **grads)
         want = cuda_cv.sweep_scatter_reference(*args, **grads)
         torch.cuda.synchronize()
-        assert cuda_cv.sweep_scatter.launches == before + 2
+        assert launched(cuda_cv.sweep_scatter) == before + 2
         assert torch.isfinite(got).all()
         assert torch.equal(got, again), tag
         SCATTER_PATHS[0] += paths[0]
@@ -808,13 +813,13 @@ def phase_backward(device) -> tuple:
         g = sweep_cotangent(b, d, h * w, device, seed=2)
         for dtype in dtypes:
             args = sweep_case(*shape, dtype=dtype, device=device, seed=1)
-            before = (cuda_cv.fused_sweep_bwd.launches,
-                      cuda_cv.sweep_scatter.launches)
+            before = (launched(cuda_cv.fused_sweep_bwd),
+                      launched(cuda_cv.sweep_scatter))
             got = cuda_cv.fused_sweep_bwd(*args, g)
             again = cuda_cv.fused_sweep_bwd(*args, g)
             torch.cuda.synchronize()
-            assert (cuda_cv.fused_sweep_bwd.launches,
-                    cuda_cv.sweep_scatter.launches) == (before[0] + 2,
+            assert (launched(cuda_cv.fused_sweep_bwd),
+                    launched(cuda_cv.sweep_scatter)) == (before[0] + 2,
                                                         before[1] + 2)
             tag = f"{name}_{str(dtype).split('.')[-1]}"
             for grad, x, y in zip(SWEEP_GRAD_NAMES, got, again):
@@ -920,16 +925,16 @@ def _series(losses, norms) -> str:
             + ", ".join(f"{x:.3f}" for x in norms))
 
 
-# the kernel families that run only inside a `record_function` range of
-# the dot training step
-RANGE_KERNELS = {"dot_sweep_backward": ("scatter", "K1-dot d_cur")}
+# the kernel families that run only inside a span of the dot training
+# step (`tracing.py`)
+RANGE_KERNELS = {"sr.dot_sweep_backward": ("scatter", "K1-dot d_cur")}
 
 
 def _range_device_ms(prof, name: str, steps: int) -> float:
-    """Device time per step, in ms, of the kernels that PyTorch
-    operations launch inside the `record_function` range `name` (its CPU
-    events' device time, which counts the kernels of every operation
-    inside, not those launched through ctypes)."""
+    """Device time per step, in ms, of the kernels launched inside the
+    span `name`: its profiler range's device time, which counts the
+    kernels of every operation inside and, the range being a function
+    scope, those launched through ctypes directly in it."""
     total = sum(evt.device_time_total for evt in prof.events()
                 if evt.name == name
                 and evt.device_type == torch.autograd.DeviceType.CPU)
@@ -939,8 +944,8 @@ def _range_device_ms(prof, name: str, steps: int) -> float:
 def profile_steps(model, optimizer, batch, generator, step: float,
                   tag: str, ranges=()) -> dict:
     """A `torch.profiler` split of the device time over two more steps,
-    against the unprofiled median `step` (ms); `ranges` names
-    `record_function` ranges whose device time is printed too."""
+    against the unprofiled median `step` (ms); `ranges` names spans
+    whose device time is printed too."""
     steps = 2
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
@@ -960,15 +965,9 @@ def profile_steps(model, optimizer, batch, generator, step: float,
     print(f"[{tag}] device ms/step by family: " + ", ".join(
         f"{name} {t:.2f}" for name, t in split.items()))
     for name in ranges:
-        # the profiler gives a range the kernels of the PyTorch operations
-        # inside it, not those launched through ctypes: add the families
-        # that run only inside it
-        ops = _range_device_ms(prof, name, steps)
-        own = sum(split[family] for family in RANGE_KERNELS.get(name, ()))
-        ms = ops + own
+        ms = _range_device_ms(prof, name, steps)
         print(f"[{tag}] device ms/step inside '{name}': {ms:.2f} "
-              f"({ms / max(busy, 1e-9):.3f} of busy): PyTorch operations "
-              f"{ops:.2f}, its kernels "
+              f"({ms / max(busy, 1e-9):.3f} of busy), of which its kernels "
               + ", ".join(f"{family} {split[family]:.2f}"
                           for family in RANGE_KERNELS.get(name, ())))
     print(f"[{tag}] top kernels ms/step: " + "; ".join(
@@ -1080,7 +1079,7 @@ def phase_dot_train(device) -> dict:
     assert warps[0] == 0, warps
     assert changed == total, (changed, total)
     profile_steps(model, optimizer, batch, generator, step, "dot_train",
-                  ranges=("dot_sweep_backward",))
+                  ranges=("sr.dot_sweep_backward",))
     assert_repeatable(model, batch, "dot_train")
     return dict(launches=counts, step_ms=step)
 
@@ -1187,11 +1186,11 @@ def phase_dot_kernel(device) -> dict:
              (torch.bfloat16,))):
         for dtype in dtypes:
             args = dot_case(*shape, dtype=dtype, device=device, seed=1)
-            before = cuda_cv.dot_sweep.launches
+            before = launched(cuda_cv.dot_sweep)
             got = cuda_cv.dot_sweep(*args)
             want = cuda_cv.dot_sweep_reference(*args)
             torch.cuda.synchronize()
-            assert cuda_cv.dot_sweep.launches == before + 1
+            assert launched(cuda_cv.dot_sweep) == before + 1
             b, k, h, w, c, d = shape
             assert got.shape == (b, d, h * w), got.shape
             assert torch.isfinite(got).all()
@@ -1225,12 +1224,12 @@ def phase_dot_kernel(device) -> dict:
             # K1-dot's d_cur mode against its plain version
             g = sweep_cotangent(b, d, h * w, device, seed=2)
             dargs = [args[0]] + list(args[2:]) + [g]
-            before = cuda_cv.dot_sweep_dcur.launches
+            before = launched(cuda_cv.dot_sweep_dcur)
             got = cuda_cv.dot_sweep_dcur(*dargs)
             again = cuda_cv.dot_sweep_dcur(*dargs)
             want = cuda_cv.dot_sweep_dcur_reference(*dargs)
             torch.cuda.synchronize()
-            assert cuda_cv.dot_sweep_dcur.launches == before + 2
+            assert launched(cuda_cv.dot_sweep_dcur) == before + 2
             assert got.shape == (b, h * w, c) and torch.isfinite(got).all()
             assert torch.equal(got, again), tag
             err = (got - want).abs().max().item()
@@ -1251,13 +1250,13 @@ def phase_dot_kernel(device) -> dict:
             entry["dcur"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                  bound=(bound, bound_by))
             # the dot backward: d_cur by that mode, d_src by the scatter
-            before = (cuda_cv.sweep_scatter.launches,
-                      cuda_cv.dot_sweep_dcur.launches)
+            before = (launched(cuda_cv.sweep_scatter),
+                      launched(cuda_cv.dot_sweep_dcur))
             first = cuda_cv.dot_sweep_backward(*args, g)
             second = cuda_cv.dot_sweep_backward(*args, g)
             torch.cuda.synchronize()
-            assert (cuda_cv.sweep_scatter.launches,
-                    cuda_cv.dot_sweep_dcur.launches) == (before[0] + 2,
+            assert (launched(cuda_cv.sweep_scatter),
+                    launched(cuda_cv.dot_sweep_dcur)) == (before[0] + 2,
                                                          before[1] + 2)
             for grad, x, y in zip(("d_src", "d_cur"), first, second):
                 assert torch.isfinite(x).all() and torch.equal(x, y), (tag,
@@ -1311,8 +1310,8 @@ def phase_pool_kernels(device) -> tuple:
             g = shifted(pool_cotangent((b, c) + pool.output_size(h, w),
                                        dtype, device, seed=4, positive=True),
                         offset)
-            before = (pool.max_blur_pool.launches,
-                      pool.max_blur_pool_bwd.launches)
+            before = (launched(pool.max_blur_pool),
+                      launched(pool.max_blur_pool_bwd))
             out = pool.max_blur_pool(x)
             dx = pool.max_blur_pool_bwd(x, g)
             torch.cuda.synchronize()
@@ -1320,8 +1319,8 @@ def phase_pool_kernels(device) -> tuple:
                     pool.rows_by_16_bytes(out, out.shape[-1]),
                     pool.rows_by_16_bytes(g, g.shape[-1]))
             staged.update(by16)
-            assert (pool.max_blur_pool.launches,
-                    pool.max_blur_pool_bwd.launches) == (before[0] + 1,
+            assert (launched(pool.max_blur_pool),
+                    launched(pool.max_blur_pool_bwd)) == (before[0] + 1,
                                                          before[1] + 1)
             want = pool.max_blur_pool_reference(x.float())
             want_dx = pool.max_blur_pool_backward_reference(x.float(),
@@ -1497,12 +1496,12 @@ def phase_early_kernels(device) -> dict:
                 ("hero_b8", (8, k, h, w, c, d8), (torch.bfloat16,))):
             for dtype in dtypes:
                 args = make_case(*shape, dtype=dtype, device=device, seed=1)
-                before = kernel_fn.launches
+                before = launched(kernel_fn)
                 with torch.no_grad():
                     got = kernel_fn(*args)
                     want = plain_fn(*args)
                 torch.cuda.synchronize()
-                assert kernel_fn.launches == before + 1
+                assert launched(kernel_fn) == before + 1
                 b_, _, h_, w_, _, d_ = shape
                 assert got.shape == (b_, d_, h_ * w_), got.shape
                 assert torch.isfinite(got).all()

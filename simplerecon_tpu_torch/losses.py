@@ -14,6 +14,7 @@ from typing import Dict
 
 import torch
 
+from simplerecon_tpu_torch import tracing
 from simplerecon_tpu_torch.ops import geometry as geo
 from simplerecon_tpu_torch.ops import image as image_ops
 from simplerecon_tpu_torch.ops.sampling import resize_nearest, sample_nearest
@@ -78,8 +79,9 @@ def mv_depth_loss(depth_pred_bhw, cur_depth_bhw, src_depth_bkhw,
     b, h, w = depth_pred_bhw.shape
     k = src_depth_bkhw.shape[1]
     f32 = torch.float32
-    scale = torch.tensor([2.0 / w, 2.0 / h], dtype=f32,
-                         device=depth_pred_bhw.device)
+    with tracing.sync("loss_scale", depth_pred_bhw.device):
+        scale = torch.tensor([2.0 / w, 2.0 / h], dtype=f32,
+                             device=depth_pred_bhw.device)
 
     def project_depths(depth_bhw, src_K_b44, src_cam_T_world_b44):
         pts = geo.backproject_depth(depth_bhw.to(f32), cur_invK_b44.to(f32))

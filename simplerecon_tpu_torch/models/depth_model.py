@@ -27,6 +27,7 @@ from typing import Dict
 import torch
 import torch.nn as nn
 
+from simplerecon_tpu_torch import tracing
 from simplerecon_tpu_torch.models.cost_volume import (DotProductCostVolume,
                                                       MLPFeatureVolume)
 from simplerecon_tpu_torch.models.decoders import CVEncoder, DepthDecoderPP
@@ -161,45 +162,56 @@ class DepthModel(nn.Module):
             cur_image = torch.flip(cur_image, dims=(-1,))
             src_image = torch.flip(src_image, dims=(-1,))
 
-        all_images = torch.cat([cur_image[:, None], src_image], dim=1)
-        with self._autocast(device):
-            cur_feats = self.encoder(cur_image)
-            matching = self.matching_model(
-                all_images.reshape(b * (k + 1), 3, h, w))
-        mc, mh, mw = matching.shape[1:]
-        # (b, k+1, h, w, c), flipped back for geometrically correct MVS
-        matching = matching.to(cdt).reshape(b, k + 1, mc, mh, mw
-                                            ).permute(0, 1, 3, 4, 2)
-        if flip:
-            matching = torch.flip(matching, dims=(3,))
-
-        volume_bhwd, lowest_cost, _, overall_mask = self.cost_volume(
-            matching[:, 0], matching[:, 1:],
-            src_extrinsics_bk44=src_cam_T_cur_cam,
-            src_poses_bk44=cur_cam_T_src_cam,
-            src_Ks_bk44=src_data[f"K_s{m}_b44"].to(f32),
-            cur_invK_b44=cur_data[f"invK_s{m}_b44"].to(f32),
-            return_mask=return_mask)
-
-        # re-align the volume with the (possibly flipped) image features
-        volume = volume_bhwd.permute(0, 3, 1, 2).to(cdt)
-        if flip:
-            volume = torch.flip(volume, dims=(-1,))
-
-        with self._autocast(device):
-            cv_feats = self.cost_volume_net(volume, cur_feats[m:])
-            depth_outputs = self.depth_decoder(list(cur_feats[:m]) + cv_feats)
-
-        outputs = {}
-        for key, log_depth_b1hw in depth_outputs.items():
-            log_depth = log_depth_b1hw.to(f32).permute(0, 2, 3, 1)
+        with tracing.span("sr.prior"), self._autocast(device):
+            cur_feats = tracing.mark("prior", self.encoder(cur_image))
+        with tracing.span("sr.matching"):
+            all_images = torch.cat([cur_image[:, None], src_image], dim=1)
+            with self._autocast(device):
+                matching = self.matching_model(
+                    all_images.reshape(b * (k + 1), 3, h, w))
+            mc, mh, mw = matching.shape[1:]
+            # (b, k+1, h, w, c), flipped back for geometrically correct MVS
+            matching = matching.to(cdt).reshape(b, k + 1, mc, mh, mw
+                                                ).permute(0, 1, 3, 4, 2)
             if flip:
-                log_depth = torch.flip(log_depth, dims=(2,))
-            bhw1_key = key.replace("_b1hw", "_bhw1")
-            outputs[bhw1_key] = log_depth
-            # clamp before exp: [-8, 8] never binds for real depths
-            outputs[bhw1_key.replace("log_", "")] = torch.exp(
-                torch.clamp(log_depth, -8.0, 8.0))
+                matching = torch.flip(matching, dims=(3,))
+            matching, = tracing.mark("matching", [matching])
+
+        with tracing.span("sr.cost_volume"):
+            volume_bhwd, lowest_cost, _, overall_mask = self.cost_volume(
+                matching[:, 0], matching[:, 1:],
+                src_extrinsics_bk44=src_cam_T_cur_cam,
+                src_poses_bk44=cur_cam_T_src_cam,
+                src_Ks_bk44=src_data[f"K_s{m}_b44"].to(f32),
+                cur_invK_b44=cur_data[f"invK_s{m}_b44"].to(f32),
+                return_mask=return_mask)
+            volume_bhwd, = tracing.mark("cost_volume", [volume_bhwd])
+
+        with tracing.span("sr.cv_encoder"):
+            # re-align the volume with the (possibly flipped) image features
+            volume = volume_bhwd.permute(0, 3, 1, 2).to(cdt)
+            if flip:
+                volume = torch.flip(volume, dims=(-1,))
+            with self._autocast(device):
+                cv_feats = tracing.mark(
+                    "cv_encoder", self.cost_volume_net(volume, cur_feats[m:]))
+
+        with tracing.span("sr.decoder"):
+            with self._autocast(device):
+                depth_outputs = self.depth_decoder(list(cur_feats[:m])
+                                                   + cv_feats)
+            outputs = {}
+            for key, log_depth_b1hw in depth_outputs.items():
+                log_depth = log_depth_b1hw.to(f32).permute(0, 2, 3, 1)
+                if flip:
+                    log_depth = torch.flip(log_depth, dims=(2,))
+                bhw1_key = key.replace("_b1hw", "_bhw1")
+                outputs[bhw1_key] = log_depth
+                # clamp before exp: [-8, 8] never binds for real depths
+                outputs[bhw1_key.replace("log_", "")] = torch.exp(
+                    torch.clamp(log_depth, -8.0, 8.0))
+            outputs = dict(zip(outputs, tracing.mark("decoder",
+                                                     outputs.values())))
         if flip:
             lowest_cost = torch.flip(lowest_cost, dims=(2,))
         outputs["lowest_cost_bhw"] = lowest_cost

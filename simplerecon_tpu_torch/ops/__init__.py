@@ -1,6 +1,6 @@
 """The port's operations: geometry, sampling, image filters, and the
 wrappers of the hand-written CUDA kernels, each counting its launches
-in its `launches` attribute."""
+in the recorder's counter `launch.<wrapper>` (`tracing.py`)."""
 
 
 def kernel_wrappers() -> tuple:
@@ -14,6 +14,9 @@ def kernel_wrappers() -> tuple:
 
 
 def launch_counts() -> dict:
-    """The launches each wrapper has counted in this process, by the
-    wrapper's name."""
-    return {fn.__name__: fn.launches for fn in kernel_wrappers()}
+    """The launches each wrapper has counted in this process since the
+    recorder's counters were last reset, by the wrapper's name."""
+    from simplerecon_tpu_torch import tracing
+    counts = tracing.counters()
+    return {fn.__name__: counts.get("launch." + fn.__name__, 0)
+            for fn in kernel_wrappers()}

@@ -28,6 +28,8 @@ from pathlib import Path
 
 import torch
 
+from simplerecon_tpu_torch import tracing
+
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -100,7 +102,9 @@ def build() -> tuple:
 def load_library() -> ctypes.CDLL:
     """Builds (if needed) and loads the kernels, declaring each C entry
     point's argument types: c_void_p for every pointer and the stream."""
-    lib = ctypes.CDLL(str(build()[0]))
+    with tracing.span("sr.kernel_build"):
+        path = build()[0]
+    lib = ctypes.CDLL(str(path))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.fused_sweep_mlp.argtypes = [ci] + [vp] * 14 + [ci] * 6 + [vp]
     lib.fused_sweep_mlp.restype = ci

@@ -13,6 +13,7 @@ from typing import NamedTuple
 
 import torch
 
+from simplerecon_tpu_torch import tracing
 from simplerecon_tpu_torch.ops import geometry as geo
 from simplerecon_tpu_torch.ops.sampling import grid_sample
 
@@ -23,8 +24,9 @@ def generate_depth_planes(batch_size: int, num_depth_bins: int,
     """(b, d) log-spaced float32 plane depths, the same for every pixel."""
     ramp = torch.linspace(0.0, 1.0, num_depth_bins, dtype=torch.float32,
                           device=device)
-    min_d = torch.tensor(min_depth, dtype=torch.float32, device=device)
-    max_d = torch.tensor(max_depth, dtype=torch.float32, device=device)
+    with tracing.sync("depth_planes", device, 2):
+        min_d = torch.tensor(min_depth, dtype=torch.float32, device=device)
+        max_d = torch.tensor(max_depth, dtype=torch.float32, device=device)
     planes = torch.exp(torch.log(min_d) + torch.log(max_d / min_d) * ramp)
     return planes[None].expand(batch_size, num_depth_bins)
 
@@ -71,8 +73,9 @@ def sweep_warp(src_feats_bkhwc: torch.Tensor,
     pix_bkdN2 = uvz_bkdN3[..., :2]
     depths_bkdN = uvz_bkdN3[..., 2]
 
-    scale = torch.tensor([2.0 / w, 2.0 / h], dtype=f32,
-                         device=pix_bkdN2.device)
+    with tracing.sync("warp_scale", pix_bkdN2.device):
+        scale = torch.tensor([2.0 / w, 2.0 / h], dtype=f32,
+                             device=pix_bkdN2.device)
     grid_bkdN2 = pix_bkdN2 * scale - 1.0
     sampled = grid_sample(
         src_feats_bkhwc.reshape(b * k, h, w, c),

@@ -47,6 +47,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from simplerecon_tpu_torch import tracing
 from simplerecon_tpu_torch.ops import _build
 from simplerecon_tpu_torch.ops import cost_volume as cv_ops
 from simplerecon_tpu_torch.ops import geometry as geo
@@ -397,12 +398,11 @@ def sweep_scatter(proj_bk44, cur_invK_b44, depth_planes_bd, max_abs,
         rc = lib.sweep_scatter(_build.DTYPE_CODES[cdt], int(not samples),
                                *ptrs, b, k, h, w, c, d, stream)
     _build.raise_on_error(lib, "sweep_scatter", rc)
-    sweep_scatter.launches += 1
+    tracing.count("launch.sweep_scatter")
     sweep_scatter.paths = paths
     return d_src
 
 
-sweep_scatter.launches = 0
 sweep_scatter.paths = None
 
 
@@ -496,11 +496,8 @@ def fused_sweep(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44, src_Ks_bk44,
         rc = lib.fused_sweep_mlp(_build.DTYPE_CODES[w0.dtype], *ptrs,
                                  b, k, h, w, c, d, stream)
     _build.raise_on_error(lib, "fused_sweep_mlp", rc)
-    fused_sweep.launches += 1
+    tracing.count("launch.fused_sweep")
     return out
-
-
-fused_sweep.launches = 0
 
 
 def fused_sweep_bwd(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44,
@@ -552,7 +549,7 @@ def fused_sweep_bwd(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44,
         rc = lib.fused_sweep_mlp_bwd(_build.DTYPE_CODES[w0.dtype], *ptrs,
                                      blocks, b, k, h, w, c, d, stream)
     _build.raise_on_error(lib, "fused_sweep_mlp_bwd", rc)
-    fused_sweep_bwd.launches += 1
+    tracing.count("launch.fused_sweep_bwd")
     # the bits of the largest |d_s| are a non-negative float32's
     d_src = sweep_scatter(proj, cur_invK_b44, depth_planes_bd,
                           d_s_max.view(f32), h, w, d_s_bkdNc=d_s)
@@ -560,9 +557,6 @@ def fused_sweep_bwd(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44,
     d_w0, d_w1, d_b0, d_b1, d_w2, d_b2 = torch.split(d_params, sizes)
     return (d_src, d_cur, d_w0.reshape(cin, HIDDEN), d_b0,
             d_w1.reshape(HIDDEN, HIDDEN), d_b1, d_w2.reshape(HIDDEN, 1), d_b2)
-
-
-fused_sweep_bwd.launches = 0
 
 
 class FusedSweep(torch.autograd.Function):
@@ -688,11 +682,8 @@ def dot_sweep_dcur(src_feats_bkhwc, src_extrinsics_bk44, src_Ks_bk44,
             _build.DTYPE_CODES[src_feats_bkhwc.dtype], *ptrs, b, k, h, w, c,
             d, stream)
     _build.raise_on_error(lib, "fused_sweep_dot_cur_grad", rc)
-    dot_sweep_dcur.launches += 1
+    tracing.count("launch.dot_sweep_dcur")
     return d_cur
-
-
-dot_sweep_dcur.launches = 0
 
 
 def dot_sweep_backward(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44,
@@ -709,10 +700,10 @@ def dot_sweep_backward(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44,
     the order of the blocks: two calls give the same bits. On the CPU
     their plain versions run. The JAX package has no backward kernel for
     the dot mode (it trains the dot model through autodiff of its XLA
-    warp). The work shows in a profiler as the range "dot_sweep_backward".
+    warp). The work is the span "sr.dot_sweep_backward".
     """
     b, k, h, w, c = src_feats_bkhwc.shape
-    with torch.profiler.record_function("dot_sweep_backward"):
+    with tracing.span("sr.dot_sweep_backward"):
         g_bdN = g_bdN.float().contiguous()
         planes = depth_planes_bd.float().contiguous()
         invK = cur_invK_b44.float().contiguous()
@@ -769,11 +760,8 @@ def dot_sweep(src_feats_bkhwc, cur_bNc, src_extrinsics_bk44, src_Ks_bk44,
         rc = lib.fused_sweep_dot(_build.DTYPE_CODES[src_feats_bkhwc.dtype],
                                  *ptrs, b, k, h, w, c, d, stream)
     _build.raise_on_error(lib, "fused_sweep_dot", rc)
-    dot_sweep.launches += 1
+    tracing.count("launch.dot_sweep")
     return out
-
-
-dot_sweep.launches = 0
 
 
 class DotSweep(torch.autograd.Function):

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from simplerecon_tpu_torch import tracing
 from simplerecon_tpu_torch.ops import _build
 from simplerecon_tpu_torch.ops import cost_volume as cv_ops
 from simplerecon_tpu_torch.ops.cuda_cv import (REFERENCE_PLANE_CHUNK, _round,
@@ -263,11 +264,8 @@ def fused_feature_volume(sampled_kRc, mask_kR, depths_kR, cur_bNc, rays_bN3,
             _build.DTYPE_CODES[cdt], *[t.data_ptr() for t in args + (out,)],
             b, k, n, c, d, stream)
     _build.raise_on_error(lib, "fused_feature_volume", rc)
-    fused_feature_volume.launches += 1
+    tracing.count("launch.fused_feature_volume")
     return out
-
-
-fused_feature_volume.launches = 0
 
 
 def fused_warp_feature_volume(img_bkhW, cur_bNc, rays_bN3, planes_bd,
@@ -311,11 +309,8 @@ def fused_warp_feature_volume(img_bkhW, cur_bNc, rays_bN3, planes_bd,
             _build.DTYPE_CODES[cdt], *[t.data_ptr() for t in args + (out,)],
             b, k, h, w, c, d, stream)
     _build.raise_on_error(lib, "fused_warp_feature_volume", rc)
-    fused_warp_feature_volume.launches += 1
+    tracing.count("launch.fused_warp_feature_volume")
     return out
-
-
-fused_warp_feature_volume.launches = 0
 
 
 class InferenceOnly(torch.autograd.Function):

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from simplerecon_tpu_torch import tracing
 from simplerecon_tpu_torch.ops import _build
 from simplerecon_tpu_torch.ops.image import pad_edges
 
@@ -112,11 +113,8 @@ def max_blur_pool(x_bchw: torch.Tensor) -> torch.Tensor:
                                    rows_by_16_bytes(out, out.shape[-1]),
                                    stream)
     _build.raise_on_error(lib, "max_blur_pool_fwd", rc)
-    max_blur_pool.launches += 1
+    tracing.count("launch.max_blur_pool")
     return out
-
-
-max_blur_pool.launches = 0
 
 
 def max_blur_pool_bwd(x_bchw: torch.Tensor, g_bchw: torch.Tensor
@@ -142,11 +140,8 @@ def max_blur_pool_bwd(x_bchw: torch.Tensor, g_bchw: torch.Tensor
             rows_by_16_bytes(x_bchw, w) and rows_by_16_bytes(dx, w),
             rows_by_16_bytes(g_bchw, g_bchw.shape[-1]), stream)
     _build.raise_on_error(lib, "max_blur_pool_bwd", rc)
-    max_blur_pool_bwd.launches += 1
+    tracing.count("launch.max_blur_pool_bwd")
     return dx
-
-
-max_blur_pool_bwd.launches = 0
 
 
 class MaxBlurPool(torch.autograd.Function):

@@ -40,6 +40,7 @@ import torch.distributed as dist
 import torch.nn as nn
 
 from simplerecon_tpu_torch import losses as loss_lib
+from simplerecon_tpu_torch import tracing
 from simplerecon_tpu_torch.ops import geometry as geo
 
 # optax.apply_if_finite(..., max_consecutive_errors=1000), as the JAX
@@ -89,10 +90,16 @@ class Optimizer:
         """Applies one update from the parameters' `.grad` (a missing one
         counts as zero). Returns the global gradient norm, before the
         clip."""
+        with tracing.span("sr.optimizer"):
+            return self._step()
+
+    def _step(self) -> torch.Tensor:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
         norm = torch.nn.utils.get_total_norm(grads)
-        if not bool(torch.isfinite(norm)):
+        with tracing.sync("grad_finite", norm.device):
+            finite = bool(torch.isfinite(norm))
+        if not finite:
             self.consecutive_errors += 1
             self.total_errors += 1
             if self.consecutive_errors <= MAX_CONSECUTIVE_ERRORS:
@@ -101,10 +108,13 @@ class Optimizer:
             self.consecutive_errors = 0
         for p, grad in zip(self.params, grads):
             p.grad = grad
-        if self.grad_clip > 0 and norm >= self.grad_clip:
-            scale = self.grad_clip / norm
-            for grad in grads:
-                grad.mul_(scale)
+        if self.grad_clip > 0:
+            with tracing.sync("grad_clip", norm.device):
+                clip = bool(norm >= self.grad_clip)
+            if clip:
+                scale = self.grad_clip / norm
+                for grad in grads:
+                    grad.mul_(scale)
         for group in self.inner.param_groups:
             group["lr"] = self.lr_schedule(self.count)
         self.inner.step()
@@ -193,23 +203,26 @@ def forward_and_losses(model: nn.Module, batch: Dict, flip: bool
     which the normals loss masks) and from the predicted depth."""
     cur, src = batch["cur"], batch["src"]
     outputs = model(cur, src, flip=flip)
-    f32 = torch.float32
-    depth_pred_s0 = outputs["depth_pred_s0_bhw1"][..., 0].to(f32)
-    invK_s0 = cur["invK_s0_b44"].to(f32)
-    outputs["normals_pred_bhw3"] = geo.normals_from_depth(depth_pred_s0,
-                                                          invK_s0)
-    nan = torch.full((), float("nan"), dtype=f32, device=invK_s0.device)
-    gt_normals = geo.normals_from_depth(
-        torch.where(cur["mask_b_bhw"], cur["depth_bhw"].to(f32), nan),
-        invK_s0)
-    loss_cur = dict(cur)
-    loss_cur["normals_bhw3"] = gt_normals
-    loss_src = {
-        "depth_bkhw": src["depth_bkhw"],
-        "K_s0_bk44": src.get("K_s0_bk44", src.get("K_s0_b44")),
-        "cam_T_world_bk44": src["cam_T_world_b44"],
-    }
-    return loss_lib.compute_losses(loss_cur, loss_src, outputs), outputs
+    with tracing.span("sr.losses"):
+        f32 = torch.float32
+        depth_pred_s0 = outputs["depth_pred_s0_bhw1"][..., 0].to(f32)
+        invK_s0 = cur["invK_s0_b44"].to(f32)
+        outputs["normals_pred_bhw3"] = geo.normals_from_depth(depth_pred_s0,
+                                                              invK_s0)
+        nan = torch.full((), float("nan"), dtype=f32, device=invK_s0.device)
+        gt_normals = geo.normals_from_depth(
+            torch.where(cur["mask_b_bhw"], cur["depth_bhw"].to(f32), nan),
+            invK_s0)
+        loss_cur = dict(cur)
+        loss_cur["normals_bhw3"] = gt_normals
+        loss_src = {
+            "depth_bkhw": src["depth_bkhw"],
+            "K_s0_bk44": src.get("K_s0_bk44", src.get("K_s0_b44")),
+            "cam_T_world_bk44": src["cam_T_world_b44"],
+        }
+        loss_dict = loss_lib.compute_losses(loss_cur, loss_src, outputs)
+        loss_dict["loss"], = tracing.mark("losses", [loss_dict["loss"]])
+    return loss_dict, outputs
 
 
 @contextlib.contextmanager
@@ -231,7 +244,8 @@ def loss_and_backward(model: nn.Module, batch: Dict, flip: bool) -> Dict:
     parameter's gradient added to its `.grad`."""
     with deterministic_convolutions():
         loss_dict, _ = forward_and_losses(model, batch, flip)
-        loss_dict["loss"].backward()
+        with tracing.span("sr.backward"):
+            loss_dict["loss"].backward()
     return loss_dict
 
 
@@ -246,11 +260,13 @@ def train_step(model: nn.Module, optimizer: Optimizer, batch: Dict,
     train mode, losses, backward, one optimizer update (skipped when a
     gradient is not finite). Returns the detached loss dictionary and
     `grad_norm`."""
-    flip = flip_coin(generator)
-    model.train()
-    optimizer.zero_grad()
-    loss_dict = loss_and_backward(model, batch, flip)
-    grad_norm = optimizer.step()
+    with tracing.span("sr.train_step"):
+        tracing.count("train_steps")
+        flip = flip_coin(generator)
+        model.train()
+        optimizer.zero_grad()
+        loss_dict = loss_and_backward(model, batch, flip)
+        grad_norm = optimizer.step()
     metrics = {key: value.detach() for key, value in loss_dict.items()}
     metrics["grad_norm"] = grad_norm
     return metrics
@@ -328,19 +344,21 @@ def ddp_train_step(ddp_model: nn.Module, optimizer: Optimizer, batch: Dict,
     Parameters stay the same bits on every rank. With `parity`, the
     metrics carry `parity_metrics` of the weights before the update.
     Returns the averaged loss dictionary and `grad_norm`."""
-    model = ddp_model.module
-    metrics = parity_metrics(model, batch) if parity else {}
-    coin = flip_coin(generator)
-    flip = coin if flip is None else flip
-    model.train()
-    optimizer.zero_grad()
-    loss_dict = loss_and_backward(ddp_model, batch, flip)
-    grad_norm = optimizer.step()
-    with torch.no_grad():
-        mean_over_ranks_(running_statistics(model))
-        losses = {key: value.detach().float().clone()
-                  for key, value in loss_dict.items()}
-        mean_over_ranks_(list(losses.values()))
+    with tracing.span("sr.train_step"):
+        tracing.count("train_steps")
+        model = ddp_model.module
+        metrics = parity_metrics(model, batch) if parity else {}
+        coin = flip_coin(generator)
+        flip = coin if flip is None else flip
+        model.train()
+        optimizer.zero_grad()
+        loss_dict = loss_and_backward(ddp_model, batch, flip)
+        grad_norm = optimizer.step()
+        with torch.no_grad(), tracing.span("sr.ranks_mean"):
+            mean_over_ranks_(running_statistics(model))
+            losses = {key: value.detach().float().clone()
+                      for key, value in loss_dict.items()}
+            mean_over_ranks_(list(losses.values()))
     metrics.update(losses)
     metrics["grad_norm"] = grad_norm
     return metrics

@@ -41,7 +41,7 @@ import time
 
 import torch
 
-from simplerecon_tpu_torch import ops, testing
+from simplerecon_tpu_torch import ops, testing, tracing
 from simplerecon_tpu_torch.options import OptionsHandler
 from simplerecon_tpu_torch.scripts import test as eval_cli
 from simplerecon_tpu_torch.scripts import train as train_cli
@@ -141,8 +141,7 @@ def eval_run(out: str, devices: list) -> tuple:
         "--dataset", "synthetic", "--single_debug_scan_id", "scene",
         "--split", "test", "--cache_depths", "--output_base_path", out,
         *extra])
-    for fn in ops.kernel_wrappers():
-        fn.launches = 0
+    tracing.reset_counters()
     t0 = time.perf_counter()
     frame_avg, _ = eval_cli.main(opts, device=devices[0], devices=devices)
     seconds = time.perf_counter() - t0

@@ -31,6 +31,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from simplerecon_tpu_torch import tracing
 from simplerecon_tpu_torch.data.loader import DataLoader, device_prefetch
 from simplerecon_tpu_torch.data.registry import get_dataset
 from simplerecon_tpu_torch.models.depth_model import (build_depth_model,
@@ -66,7 +67,7 @@ def make_forward_fn(model, devices=None):
     model.eval()
 
     def forward(cur_data, src_data):
-        with torch.inference_mode():
+        with tracing.span("sr.forward"), torch.inference_mode():
             outputs = model(cur_data, src_data, flip=False, return_mask=True)
         return {k: outputs[k] for k in _FORWARD_KEYS}
 
@@ -100,7 +101,7 @@ def make_forward_fn(model, devices=None):
             return out
 
         parts = []
-        with torch.inference_mode():
+        with tracing.span("sr.forward"), torch.inference_mode():
             for i, device in enumerate(devices):
                 outputs = replicas[device](
                     shard(cur_data, i, device), shard(src_data, i, device),
@@ -279,9 +280,9 @@ def main(opts: Options, device=None, devices=None):
 
         batches = iter(device_prefetch(loader, device))
         while True:
-            t0 = time.perf_counter()
-            batch = next(batches, None)
-            stages["loader"] += time.perf_counter() - t0
+            with tracing.span("sr.loader.wait") as wait:
+                batch = next(batches, None)
+            stages["loader"] += wait.seconds
             if batch is None:
                 break
             cur, src = batch["cur"], batch["src"]

@@ -40,6 +40,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from simplerecon_tpu_torch import tracing
 from simplerecon_tpu_torch.data.loader import (DataLoader, device_prefetch,
                                                to_train_schema)
 from simplerecon_tpu_torch.data.registry import get_dataset
@@ -132,9 +133,10 @@ def main(opts: Options, device=None, on_step=None, backend=None):
     """Trains the model of `opts` on `device` (the CUDA card unless
     another is given) to `opts.max_steps`; `on_step(state, batch,
     metrics)`, when given, is called after each step. Returns the
-    `TrainState`, with `run_stats`: the host seconds of each step, of
-    each loader wait, of each validation and each checkpoint write, the
-    card's peak memory (bytes), the steps run and the kernels' launches.
+    `TrainState`, with `run_stats`: the host seconds of each step (its
+    span `sr.train_step`), of each loader wait (`sr.loader.wait`) and
+    their sum, of each validation and each checkpoint write, the card's
+    peak memory (bytes), the steps run and the kernels' launches.
 
     With `opts.num_devices` above 1, runs that many ranks (`run_ranks`;
     `backend` names their process group's backend, by default NCCL on
@@ -261,9 +263,8 @@ def train(opts: Options, device: torch.device, rank: int = 0,
     while state.step < opts.max_steps:
         batches = iter(device_prefetch(train_loader, device))
         while state.step < opts.max_steps:
-            t0 = time.perf_counter()
-            batch = next(batches, None)
-            t1 = time.perf_counter()
+            with tracing.span("sr.loader.wait") as wait:
+                batch = next(batches, None)
             if batch is None:
                 break
             if ddp_model is None:
@@ -273,8 +274,8 @@ def train(opts: Options, device: torch.device, rank: int = 0,
                 metrics = train_lib.ddp_train_step(
                     ddp_model, state.optimizer, batch, state.generator)
             state.step += 1
-            stats["loader_seconds"].append(t1 - t0)
-            stats["step_seconds"].append(time.perf_counter() - t1)
+            stats["loader_seconds"].append(wait.seconds)
+            stats["step_seconds"].append(tracing.last("sr.train_step").seconds)
             if on_step is not None:
                 on_step(state, batch, metrics)
 
@@ -309,6 +310,7 @@ def train(opts: Options, device: torch.device, rank: int = 0,
         logger.close()
         print(f"training done at step {state.step}")
     stats["steps"] = len(stats["step_seconds"])
+    stats["loader_wait_seconds"] = sum(stats["loader_seconds"])
     stats["launches"] = launch_counts()
     stats["peak_memory_bytes"] = (torch.cuda.max_memory_allocated(device)
                                   if device.type == "cuda" else 0)

@@ -645,7 +645,8 @@ def ddp_steps(rank: int, world: int, init_file: str, out_dir: str, opts,
     (bytes). For `torch.multiprocessing.spawn`."""
     import time
     from simplerecon_tpu_torch.models.depth_model import build_depth_model
-    from simplerecon_tpu_torch.ops import kernel_wrappers, launch_counts
+    from simplerecon_tpu_torch import tracing
+    from simplerecon_tpu_torch.ops import launch_counts
     from simplerecon_tpu_torch.parallel import mesh
     from simplerecon_tpu_torch.parallel import train
     if device_type == "cpu":
@@ -665,8 +666,7 @@ def ddp_steps(rank: int, world: int, init_file: str, out_dir: str, opts,
             lambda: None)
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
-        for fn in kernel_wrappers():
-            fn.launches = 0
+        tracing.reset_counters()
         metrics, step_ms = [], []
         for flip in flips:
             sync()

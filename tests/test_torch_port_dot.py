@@ -47,6 +47,7 @@ from simplerecon_tpu_torch.models.cost_volume import DotProductCostVolume
 from simplerecon_tpu_torch.models.depth_model import DepthModel
 from simplerecon_tpu_torch.ops import cuda_cv
 from simplerecon_tpu_torch.ops import pool
+from simplerecon_tpu_torch.ops import launch_counts
 from simplerecon_tpu_torch.testing import dot_options
 from simplerecon_tpu_torch.utils.weights import (jax_to_state_dict,
                                                  load_jax_variables)
@@ -143,11 +144,11 @@ def test_dot_sweep_gradient_matches_jax(jax_dot_vjp):
     inputs, d, g, want = jax_dot_vjp
     cur, src = inputs[:2]
     cur_t, src_t = _t(cur).requires_grad_(), _t(src).requires_grad_()
-    before = cuda_cv.dot_sweep.launches
+    before = launch_counts()["dot_sweep"]
     vol = DotProductCostVolume(num_depth_bins=d)(cur_t, src_t,
                                                  *map(_t, inputs[2:]))[0]
     vol.backward(_t(g))
-    assert cuda_cv.dot_sweep.launches == before     # the plain version
+    assert launch_counts()["dot_sweep"] == before     # the plain version
     for got, ref in ((cur_t.grad, want[0]), (src_t.grad, want[1])):
         assert np.abs(ref).max() > 1e-2
         np.testing.assert_allclose(got.numpy(), ref, rtol=VOLUME_TOL,
@@ -170,9 +171,9 @@ def test_dot_dcur_reference_matches_jax(jax_dot_vjp):
     assert np.abs(ref).max() > 1e-2
     np.testing.assert_allclose(got.numpy(), ref, rtol=VOLUME_TOL,
                                atol=VOLUME_TOL * np.abs(ref).max())
-    before = cuda_cv.dot_sweep_dcur.launches
+    before = launch_counts()["dot_sweep_dcur"]
     assert torch.equal(cuda_cv.dot_sweep_dcur(*args), got)
-    assert cuda_cv.dot_sweep_dcur.launches == before   # the plain version
+    assert launch_counts()["dot_sweep_dcur"] == before   # the plain version
 
 
 def test_dot_sweep_function_gives_geometry_no_gradient():
@@ -266,11 +267,11 @@ def test_dot_model_matches_jax(dot_slice, jax_dot_outputs, flip):
     model.cost_volume.register_forward_hook(
         lambda mod, args, out: captured.update(volume=out[0]))
     to_t = lambda d: {k: torch.from_numpy(v) for k, v in d.items()}
-    before = (cuda_cv.dot_sweep.launches, pool.max_blur_pool.launches)
+    before = (launch_counts()["dot_sweep"], launch_counts()["max_blur_pool"])
     with torch.no_grad():
         got = model(to_t(cur), to_t(src), flip=flip, return_mask=True)
-    assert (cuda_cv.dot_sweep.launches,
-            pool.max_blur_pool.launches) == before   # plain versions
+    assert (launch_counts()["dot_sweep"],
+            launch_counts()["max_blur_pool"]) == before   # plain versions
     got = {k: v.numpy() for k, v in got.items()}
     got["cost_volume_bhwd"] = captured["volume"].numpy()
 

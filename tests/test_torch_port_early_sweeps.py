@@ -38,6 +38,7 @@ from simplerecon_tpu.ops import pallas_cv
 from simplerecon_tpu_torch.models.cost_volume import MLPFeatureVolume
 from simplerecon_tpu_torch.ops import cost_volume as tcv
 from simplerecon_tpu_torch.ops import early_sweeps
+from simplerecon_tpu_torch.ops import launch_counts
 from simplerecon_tpu_torch.utils.weights import jax_to_state_dict
 from test_torch_port_ops import few_torch_threads  # noqa: F401 (autouse)
 from test_torch_port_ops import ORDER, sweep_inputs
@@ -105,9 +106,10 @@ def test_plain_version_matches_jax_kernel(inputs, kernel, dtype):
     args, jargs = make_args(inputs, dtype)
     with jax.default_matmul_precision("highest"):
         want = np.asarray(jax_fn(*jargs, tile=TILE, interpret=True))
-    before = port_fn.launches
+    before = launch_counts()[port_fn.__name__]
     got = port_fn(*args).numpy()
-    assert port_fn.launches == before   # the plain version, no kernel
+    # the plain version, no kernel
+    assert launch_counts()[port_fn.__name__] == before
     assert got.shape == (B, D, H * W) and got.dtype == np.float32
     assert 1e-2 < want.std() and np.abs(want).max() < 4
     if dtype == torch.float32:

@@ -83,7 +83,8 @@ import math
 import pytest
 import torch
 
-from simplerecon_tpu_torch.ops import cuda_cv, early_sweeps, pool
+from simplerecon_tpu_torch.ops import (cuda_cv, early_sweeps,
+                                      launch_counts, pool)
 from simplerecon_tpu_torch.testing import (POOL_CASES, dot_case, pool_case,
                                            pool_cotangent, relative_errors,
                                            scatter_case, shifted, stack_case,
@@ -119,12 +120,12 @@ def cuda():
                          ids=["odd", "hero"])
 def test_kernel_matches_plain_version(cuda, dtype, shape):
     args = sweep_case(*shape, dtype=dtype, device=cuda, seed=1)
-    before = cuda_cv.fused_sweep.launches
+    before = launch_counts()["fused_sweep"]
     with torch.no_grad():
         got = cuda_cv.fused_sweep(*args)
         want = cuda_cv.fused_sweep_reference(*args)
     torch.cuda.synchronize()
-    assert cuda_cv.fused_sweep.launches == before + 1
+    assert launch_counts()["fused_sweep"] == before + 1
     b, k, h, w, c, d = shape
     assert got.shape == (b, d, h * w) and got.dtype == torch.float32
     assert torch.isfinite(got).all()
@@ -155,10 +156,10 @@ def test_backward_kernel_matches_plain_version(cuda, dtype, shape):
     b, k, h, w, c, d = shape
     args = sweep_case(*shape, dtype=dtype, device=cuda, seed=1)
     g = sweep_cotangent(b, d, h * w, cuda, seed=2)
-    before = cuda_cv.fused_sweep_bwd.launches
+    before = launch_counts()["fused_sweep_bwd"]
     got = cuda_cv.fused_sweep_bwd(*args, g)
     torch.cuda.synchronize()
-    assert cuda_cv.fused_sweep_bwd.launches == before + 1
+    assert launch_counts()["fused_sweep_bwd"] == before + 1
     want = cuda_cv.fused_sweep_backward_reference(
         *[a.float() for a in args], g)
     for a, ref in zip(got, want):
@@ -174,10 +175,11 @@ def test_autograd_through_the_kernels_launches_each_once(cuda):
     args = sweep_case(1, 2, 8, 8, 4, 3, dtype=torch.float32, device=cuda)
     for i in (0, 1, 8, 10, 12):
         args[i].requires_grad_()
-    before = (cuda_cv.fused_sweep.launches, cuda_cv.fused_sweep_bwd.launches)
+    before = (launch_counts()["fused_sweep"],
+              launch_counts()["fused_sweep_bwd"])
     cuda_cv.FusedSweep.apply(*args).square().sum().backward()
-    assert (cuda_cv.fused_sweep.launches,
-            cuda_cv.fused_sweep_bwd.launches) == (before[0] + 1,
+    assert (launch_counts()["fused_sweep"],
+            launch_counts()["fused_sweep_bwd"]) == (before[0] + 1,
                                                   before[1] + 1)
     assert args[0].grad is not None and args[8].grad is not None
 
@@ -189,13 +191,14 @@ def test_bf16_tensor_core_kernels_match_plain_versions(cuda, shape):
     b, k, h, w, c, d = shape
     args = sweep_case(*shape, dtype=torch.bfloat16, device=cuda, seed=3)
     g = sweep_cotangent(b, d, h * w, cuda, seed=4)
-    before = (cuda_cv.fused_sweep.launches, cuda_cv.fused_sweep_bwd.launches)
+    before = (launch_counts()["fused_sweep"],
+              launch_counts()["fused_sweep_bwd"])
     with torch.no_grad():
         got = cuda_cv.fused_sweep(*args)
     grads = cuda_cv.fused_sweep_bwd(*args, g)
     torch.cuda.synchronize()
-    assert (cuda_cv.fused_sweep.launches,
-            cuda_cv.fused_sweep_bwd.launches) == (before[0] + 1,
+    assert (launch_counts()["fused_sweep"],
+            launch_counts()["fused_sweep_bwd"]) == (before[0] + 1,
                                                   before[1] + 1)
     want = cuda_cv.fused_sweep_reference(*args)
     assert got.shape == (b, d, h * w) and torch.isfinite(got).all()
@@ -233,11 +236,11 @@ def test_backward_kernel_sums_weights_in_a_fixed_order(cuda, dtype):
                          ids=["odd", "hero"])
 def test_dot_kernel_matches_plain_version(cuda, dtype, shape):
     args = dot_case(*shape, dtype=dtype, device=cuda, seed=1)
-    before = cuda_cv.dot_sweep.launches
+    before = launch_counts()["dot_sweep"]
     got = cuda_cv.dot_sweep(*args)
     want = cuda_cv.dot_sweep_reference(*args)
     torch.cuda.synchronize()
-    assert cuda_cv.dot_sweep.launches == before + 1
+    assert launch_counts()["dot_sweep"] == before + 1
     b, k, h, w, c, d = shape
     assert got.shape == (b, d, h * w) and got.dtype == torch.float32
     assert torch.isfinite(got).all()
@@ -251,13 +254,15 @@ def test_dot_sweep_function_launches_the_kernel_once(cuda):
     args[1].requires_grad_()
     counters = (cuda_cv.dot_sweep, cuda_cv.sweep_scatter,
                 cuda_cv.dot_sweep_dcur)
-    before = [fn.launches for fn in counters]
+    before = [launch_counts()[fn.__name__] for fn in counters]
     out = cuda_cv.DotSweep.apply(*args)
     g = torch.randn_like(out)
     out.backward(g)
     d_src, d_cur = cuda_cv.dot_sweep_backward(*[a.detach() for a in args],
                                               g)
-    assert [fn.launches - n for fn, n in zip(counters, before)] == [1, 2, 2]
+    counts = launch_counts()
+    assert [counts[fn.__name__] - n
+            for fn, n in zip(counters, before)] == [1, 2, 2]
     # d_src is summed in fixed point by the scatter kernel, d_cur by K1-dot's
     # d_cur mode in a fixed order: two calls give the same bits
     assert torch.equal(args[0].grad, d_src)
@@ -275,12 +280,12 @@ def test_dcur_mode_matches_plain_version(cuda, dtype, shape):
                                               device=cuda, seed=1)
     g = sweep_cotangent(b, d, h * w, cuda, seed=2)
     args = (src, extr, Ks, invK, planes, g)
-    before = cuda_cv.dot_sweep_dcur.launches
+    before = launch_counts()["dot_sweep_dcur"]
     got = cuda_cv.dot_sweep_dcur(*args)
     again = cuda_cv.dot_sweep_dcur(*args)
     want = cuda_cv.dot_sweep_dcur_reference(*args)
     torch.cuda.synchronize()
-    assert cuda_cv.dot_sweep_dcur.launches == before + 2
+    assert launch_counts()["dot_sweep_dcur"] == before + 2
     assert got.shape == (b, h * w, c) and got.dtype == torch.float32
     assert torch.isfinite(got).all() and torch.equal(got, again)
     err = (got - want).abs().max().item()
@@ -297,11 +302,11 @@ def test_scatter_kernel_matches_plain_version(cuda, mode, dtype, shape):
     b, k, h, w, c, d = shape
     args, grads = scatter_case(*shape, dtype=dtype, device=cuda, seed=1,
                                dot=mode == "dot")
-    before = cuda_cv.sweep_scatter.launches
+    before = launch_counts()["sweep_scatter"]
     got = cuda_cv.sweep_scatter(*args, **grads)
     again = cuda_cv.sweep_scatter(*args, **grads)
     torch.cuda.synchronize()
-    assert cuda_cv.sweep_scatter.launches == before + 2
+    assert launch_counts()["sweep_scatter"] == before + 2
     assert got.shape == (b, k, h, w, c) and got.dtype == torch.float32
     assert torch.equal(got, again)
     want = cuda_cv.sweep_scatter_reference(*args, **grads)
@@ -365,10 +370,11 @@ def test_pool_kernels_match_plain_versions(cuda, dtype, case):
         assert not pool.rows_by_16_bytes(x, w)   # element-wise staging
     if case == "encoder_b1":
         assert pool.rows_by_16_bytes(x, w)       # 16-byte staging
-    before = (pool.max_blur_pool.launches, pool.max_blur_pool_bwd.launches)
+    before = (launch_counts()["max_blur_pool"],
+              launch_counts()["max_blur_pool_bwd"])
     pairs = _pool_errors(x, g)
-    assert (pool.max_blur_pool.launches,
-            pool.max_blur_pool_bwd.launches) == (before[0] + 1,
+    assert (launch_counts()["max_blur_pool"],
+            launch_counts()["max_blur_pool_bwd"]) == (before[0] + 1,
                                                  before[1] + 1)
     for got, want in pairs:
         assert got.shape == want.shape and got.dtype == dtype
@@ -397,10 +403,11 @@ def test_pool_kernels_give_the_same_bits_twice(cuda, dtype):
 def test_max_blur_pool_function_launches_each_kernel_once(cuda):
     x = pool_case((2, 4, 12, 16), torch.float32, cuda, seed=5)
     x.requires_grad_()
-    before = (pool.max_blur_pool.launches, pool.max_blur_pool_bwd.launches)
+    before = (launch_counts()["max_blur_pool"],
+              launch_counts()["max_blur_pool_bwd"])
     pool.MaxBlurPool.apply(x).square().sum().backward()
-    assert (pool.max_blur_pool.launches,
-            pool.max_blur_pool_bwd.launches) == (before[0] + 1,
+    assert (launch_counts()["max_blur_pool"],
+            launch_counts()["max_blur_pool_bwd"]) == (before[0] + 1,
                                                  before[1] + 1)
     assert x.grad is not None and torch.isfinite(x.grad).all()
 
@@ -443,12 +450,12 @@ EARLY_KERNELS = {
 def test_early_kernels_match_plain_versions(cuda, kernel, dtype, shape):
     make_case, kernel_fn, plain_fn = EARLY_KERNELS[kernel]
     args = make_case(*shape, dtype=dtype, device=cuda, seed=1)
-    before = kernel_fn.launches
+    before = launch_counts()[kernel_fn.__name__]
     with torch.no_grad():
         got = kernel_fn(*args)
         want = plain_fn(*args)
     torch.cuda.synchronize()
-    assert kernel_fn.launches == before + 1
+    assert launch_counts()[kernel_fn.__name__] == before + 1
     b, k, h, w, c, d = shape
     assert got.shape == (b, d, h * w) and got.dtype == torch.float32
     assert torch.isfinite(got).all()
@@ -488,9 +495,9 @@ def test_early_kernel_wrappers_reject_what_they_do_not_take(cuda):
     bad[7] = warp[7].to(torch.bfloat16)             # w0 in another dtype
     with pytest.raises(TypeError):
         early_sweeps.fused_warp_feature_volume(*bad)
-    before = early_sweeps.fused_warp_feature_volume.launches
+    before = launch_counts()["fused_warp_feature_volume"]
     early_sweeps.fused_warp_feature_volume(*warp)
-    assert early_sweeps.fused_warp_feature_volume.launches == before + 1
+    assert launch_counts()["fused_warp_feature_volume"] == before + 1
 
 
 def _eval_opts(out, *extra):
@@ -528,10 +535,10 @@ def test_eval_cli_on_the_card_matches_the_cpu(cuda, tmp_path):
                                                       seed=3), seed=3)
             ckpt = save_weights(str(tmp_path / "seeded.pt"), model, opts)
         opts.load_weights_from_checkpoint = ckpt
-        before = cuda_cv.fused_sweep.launches
+        before = launch_counts()["fused_sweep"]
         runs[tag] = eval_cli.main(opts, device=device)
         assert len(runs[tag][0].elem_metrics) == 45
-        assert cuda_cv.fused_sweep.launches - before == (
+        assert launch_counts()["fused_sweep"] - before == (
             3 if tag == "gpu" else 0)
     out = "hero_model/synthetic/default"
     compare_cached_depths(str(tmp_path / "gpu" / out / "depths/scene"),
@@ -597,6 +604,52 @@ def test_training_steps_repeat_their_bits(cuda):
     assert not differ, differ
 
 
+# the CUDA runtime's calls that make the host wait for the card
+BLOCKING_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                  "cudaEventSynchronize", "cudaMemcpy")
+
+
+def test_host_syncs_count_the_runtime_syncs_of_a_step(cuda):
+    """The recorder's `host_syncs` of one hero training step against the
+    CUDA runtime's synchronizing calls inside the profiled step: the same
+    number, each inside an `sr.sync.<site>` span."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from simplerecon_tpu_torch import tracing
+    from simplerecon_tpu_torch.models.depth_model import build_depth_model
+    from simplerecon_tpu_torch.parallel import train
+    from simplerecon_tpu_torch.testing import hero_options, train_batch
+    opts = hero_options(image_height=64, image_width=96,
+                        matching_num_depth_bins=8, model_num_views=4)
+    model = build_depth_model(opts, device=cuda, seed=0)
+    optimizer = train.make_optimizer(opts, model)
+    batch = train.batch_to_device(train_batch(opts, 2, seed=1), cuda)
+    generator = torch.Generator().manual_seed(0)
+    train.train_step(model, optimizer, batch, generator)
+    torch.cuda.synchronize()
+    before = tracing.counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train.train_step(model, optimizer, batch, generator)
+    after = tracing.counters()
+    counted = {k: v - before.get(k, 0) for k, v in after.items()}
+
+    def edges(e):
+        if hasattr(e, "start_ns"):
+            return e.start_ns(), e.end_ns()
+        return e.start_us() * 1e3, (e.start_us() + e.duration_us()) * 1e3
+    host = [(e.name(), *edges(e)) for e in prof.profiler.kineto_results
+            .events() if e.device_type() == DeviceType.CPU]
+    (step,) = [(s, t) for name, s, t in host if name == "sr.train_step"]
+    syncs = [(s, t) for name, s, t in host
+             if name in BLOCKING_CALLS and step[0] <= s <= step[1]]
+    sites = [(s, t) for name, s, t in host if name.startswith("sr.sync.")]
+    assert counted["train_steps"] == 1
+    assert len(syncs) == counted["host_syncs"] >= 3, (syncs, counted)
+    assert all(any(a <= s and t <= b for a, b in sites)
+               for s, t in syncs), (syncs, sites)
+
+
 def test_train_cli_on_the_card(cuda, tmp_path):
     """The training program at 64x96 bf16, batch 4, 4 steps with a
     validation at step 4 over 1 batch: K1, K2 and the scatter once a
@@ -620,9 +673,11 @@ def test_train_cli_on_the_card(cuda, tmp_path):
 
     counters = (cuda_cv.fused_sweep, cuda_cv.fused_sweep_bwd,
                 cuda_cv.sweep_scatter)
-    before = [fn.launches for fn in counters]
+    before = [launch_counts()[fn.__name__] for fn in counters]
     state = train_cli.main(opts_for("--max_steps", "4"))
-    assert [fn.launches - b for fn, b in zip(counters, before)] == [5, 4, 4]
+    counts = launch_counts()
+    assert [counts[fn.__name__] - b
+            for fn, b in zip(counters, before)] == [5, 4, 4]
     root = tmp_path / "hero_model"
     with open(root / "metrics.jsonl") as f:
         rows = [json.loads(line) for line in f]
@@ -734,10 +789,10 @@ def test_unet_model_on_the_card_matches_the_cpu(cuda):
         captured = {}
         model.cost_volume.register_forward_hook(
             lambda mod, args, out: captured.update(volume=out[0]))
-        before = cuda_cv.fused_sweep.launches
+        before = launch_counts()["fused_sweep"]
         with torch.no_grad():
             out = model(cur, src)
-        assert cuda_cv.fused_sweep.launches - before == (tag == "gpu")
+        assert launch_counts()["fused_sweep"] - before == (tag == "gpu")
         results[tag] = {k: v.cpu() for k, v in out.items()
                         if v is not None}
         results[tag]["cost_volume_bhwd"] = captured["volume"].cpu()

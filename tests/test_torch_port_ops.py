@@ -30,6 +30,7 @@ from simplerecon_tpu.ops import sampling as jsampling
 from simplerecon_tpu_torch.models.cost_volume import MLPFeatureVolume
 from simplerecon_tpu_torch.ops import cost_volume as tcv
 from simplerecon_tpu_torch.ops import cuda_cv
+from simplerecon_tpu_torch.ops import launch_counts
 from simplerecon_tpu_torch.ops import geometry as tgeo
 from simplerecon_tpu_torch.ops import sampling as tsampling
 from simplerecon_tpu_torch.utils.weights import jax_to_state_dict
@@ -231,11 +232,11 @@ def test_fused_sweep_reference_matches_jax_kernel(wide):
 def test_fused_sweep_wrapper_uses_plain_version_only_on_cpu():
     inp = sweep_inputs(1, 2, 4, 8, 4, 3, seed=4)
     args = [_t(inp[n]) for n in ORDER]
-    before = cuda_cv.fused_sweep.launches
+    before = launch_counts()["fused_sweep"]
     torch.testing.assert_close(cuda_cv.fused_sweep(*args),
                                cuda_cv.fused_sweep_reference(*args),
                                rtol=0, atol=0)
-    assert cuda_cv.fused_sweep.launches == before   # no kernel launched
+    assert launch_counts()["fused_sweep"] == before   # no kernel launched
     with pytest.raises(ValueError):
         cuda_cv.fused_sweep(*[a.to("meta") for a in args])
 

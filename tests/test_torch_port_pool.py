@@ -28,6 +28,7 @@ from simplerecon_tpu.ops import pallas_pool
 from simplerecon_tpu_torch.models.matching_encoder import \
     ResnetMatchingEncoder
 from simplerecon_tpu_torch.ops import pool
+from simplerecon_tpu_torch.ops import launch_counts
 from simplerecon_tpu_torch.testing import pool_case, pool_cotangent
 from test_torch_port_modules import apply_jax, assert_close, bridged, nchw
 from test_torch_port_ops import few_torch_threads  # noqa: F401 (autouse)
@@ -87,20 +88,22 @@ def test_matching_encoder_with_the_fused_pool_matches_jax():
     plain = bridged(ResnetMatchingEncoder(num_ch_out=16), "matching_model",
                     variables)
     assert "net.3.1.filt" in fused.state_dict()
-    before = (pool.max_blur_pool.launches, pool.max_blur_pool_bwd.launches)
+    before = (launch_counts()["max_blur_pool"],
+              launch_counts()["max_blur_pool_bwd"])
     with torch.no_grad():
         got = fused(nchw(x))
         assert_close(got, want)
         torch.testing.assert_close(got, plain(nchw(x)), rtol=0, atol=0)
-    assert (pool.max_blur_pool.launches,
-            pool.max_blur_pool_bwd.launches) == before   # plain versions
+    assert (launch_counts()["max_blur_pool"],
+            launch_counts()["max_blur_pool_bwd"]) == before   # plain versions
 
 
 def test_max_blur_pool_function_uses_plain_versions_only_on_cpu():
     x = pool_case((1, 3, 9, 10), torch.float32, "cpu", seed=6)
     g = pool_cotangent((1, 3) + pool.output_size(9, 10), torch.float32,
                        "cpu", seed=7)
-    before = (pool.max_blur_pool.launches, pool.max_blur_pool_bwd.launches)
+    before = (launch_counts()["max_blur_pool"],
+              launch_counts()["max_blur_pool_bwd"])
     xg = x.clone().requires_grad_()
     out = pool.MaxBlurPool.apply(xg)
     out.backward(g)
@@ -108,8 +111,8 @@ def test_max_blur_pool_function_uses_plain_versions_only_on_cpu():
                                rtol=0, atol=0)
     torch.testing.assert_close(
         xg.grad, pool.max_blur_pool_backward_reference(x, g), rtol=0, atol=0)
-    assert (pool.max_blur_pool.launches,
-            pool.max_blur_pool_bwd.launches) == before
+    assert (launch_counts()["max_blur_pool"],
+            launch_counts()["max_blur_pool_bwd"]) == before
     with pytest.raises(ValueError):
         pool.max_blur_pool(x.to("meta"))
 

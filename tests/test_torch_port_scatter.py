@@ -29,6 +29,7 @@ import torch
 
 from simplerecon_tpu_torch.ops import cost_volume as cv_ops
 from simplerecon_tpu_torch.ops import cuda_cv
+from simplerecon_tpu_torch.ops import launch_counts
 from simplerecon_tpu_torch.testing import (GEOMETRIES, dot_case,
                                            scatter_case, sweep_cotangent)
 from test_torch_port_ops import few_torch_threads  # noqa: F401 (autouse)
@@ -189,10 +190,10 @@ def test_scatter_wrapper_runs_its_plain_version_on_the_cpu():
                                               device="cpu", seed=6)
     g = sweep_cotangent(b, d, h * w, "cpu", seed=7)
     bound = torch.tensor([4.0])
-    before = cuda_cv.sweep_scatter.launches
+    before = launch_counts()["sweep_scatter"]
     got = cuda_cv.sweep_scatter(Ks @ extr, invK, planes, bound, h, w,
                                 g_bdN=g, cur_bNc=cur)
-    assert cuda_cv.sweep_scatter.launches == before
+    assert launch_counts()["sweep_scatter"] == before
     want = cuda_cv.sweep_scatter_reference(Ks @ extr, invK, planes, bound, h,
                                            w, g_bdN=g, cur_bNc=cur)
     assert torch.equal(got, want)

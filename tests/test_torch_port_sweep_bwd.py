@@ -25,6 +25,7 @@ import torch
 
 from simplerecon_tpu.ops import pallas_cv
 from simplerecon_tpu_torch.ops import cuda_cv
+from simplerecon_tpu_torch.ops import launch_counts
 from test_torch_port_ops import ORDER, _t, sweep_inputs
 from test_torch_port_ops import few_torch_threads  # noqa: F401 (autouse)
 
@@ -86,11 +87,12 @@ def test_fused_sweep_function_matches_autograd_of_plain_forward():
                                           if n in diff], g)
         return out, grads
 
-    before = (cuda_cv.fused_sweep.launches, cuda_cv.fused_sweep_bwd.launches)
+    before = (launch_counts()["fused_sweep"],
+              launch_counts()["fused_sweep_bwd"])
     out, got = run(cuda_cv.FusedSweep.apply)
     out_ref, want = run(cuda_cv.fused_sweep_reference)
-    assert (cuda_cv.fused_sweep.launches,
-            cuda_cv.fused_sweep_bwd.launches) == before  # plain versions
+    assert (launch_counts()["fused_sweep"],
+            launch_counts()["fused_sweep_bwd"]) == before  # plain versions
     torch.testing.assert_close(out, out_ref, rtol=0, atol=0)
     _assert_grads_close(got, [w.numpy() for w in want], AUTOGRAD_TOL)
 
