@@ -13,6 +13,14 @@ convolution stacks run under autocast and the feature volume in bf16,
 while relative poses and all projection geometry stay float32 and the
 instance norms run in float32.
 
+On a CUDA device the convolution stacks' weights and activations are
+laid out channels_last (`ops/layout.py`), which cuDNN's tensor-core
+convolutions take without a transpose: the model lays out its 4-D
+weights so whenever it is built on, or moved to, a device, and lays out
+the images so as they enter. The depthwise convolutions and the stem
+pool K3 run on NCHW maps between two copies (`layout.on_nchw`). Logical
+shapes, the outputs' layouts and the math are the same on every device.
+
 Flip follows the JAX package: images are flipped before the encoders,
 matching features are flipped back before the cost volume, the volume is
 flipped to line up with the flipped image-prior features, and the depth
@@ -34,6 +42,7 @@ from simplerecon_tpu_torch.models.decoders import CVEncoder, DepthDecoderPP
 from simplerecon_tpu_torch.models.efficientnet import EfficientNetV2Features
 from simplerecon_tpu_torch.models.matching_encoder import (
     ResnetMatchingEncoder, UNetMatchingEncoder)
+from simplerecon_tpu_torch.ops import layout
 
 # cost_volume_backend values of the JAX package and the hero model's sweep
 # each selects in the port: the fused sweep kernel K1 (with K2 as its
@@ -121,6 +130,25 @@ class DepthModel(nn.Module):
             num_ch_cv=matching_num_depth_bins, num_ch_enc=enc_ch[m:])
         self.depth_decoder = DepthDecoderPP(
             num_ch_enc=list(enc_ch[:m]) + list(CVEncoder.num_ch_outs))
+        self._follow_device()
+
+    def _follow_device(self) -> None:
+        """Lays out the 4-D weights in the layout of the device they are
+        on (`layout.conv_format`)."""
+        device = next(self.parameters()).device
+        layout.use_format_(self, layout.conv_format(device))
+
+    def _apply(self, fn, recurse=True):
+        # every move (`to`, `cuda`, `cpu`, a cast) ends in the layout of
+        # the device it lands on
+        super()._apply(fn, recurse)
+        self._follow_device()
+        return self
+
+    @property
+    def memory_format(self) -> torch.memory_format:
+        """The layout the convolution stacks run in: their weights'."""
+        return layout.format_of(self.encoder.conv_stem.weight)
 
     def _autocast(self, device: torch.device):
         if self.compute_dtype == torch.float32:
@@ -144,6 +172,7 @@ class DepthModel(nn.Module):
         m = self.matching_scale
         cdt = self.compute_dtype
         f32 = torch.float32
+        fmt = self.memory_format
         cur_image = cur_data["image_b3hw"].to(cdt)
         src_image = src_data["image_b3hw"].to(cdt)
         device = cur_image.device
@@ -163,14 +192,17 @@ class DepthModel(nn.Module):
             src_image = torch.flip(src_image, dims=(-1,))
 
         with tracing.span("sr.prior"), self._autocast(device):
-            cur_feats = tracing.mark("prior", self.encoder(cur_image))
+            cur_feats = tracing.mark("prior", self.encoder(
+                cur_image.contiguous(memory_format=fmt)))
         with tracing.span("sr.matching"):
             all_images = torch.cat([cur_image[:, None], src_image], dim=1)
             with self._autocast(device):
                 matching = self.matching_model(
-                    all_images.reshape(b * (k + 1), 3, h, w))
+                    all_images.reshape(b * (k + 1), 3, h, w).contiguous(
+                        memory_format=fmt))
             mc, mh, mw = matching.shape[1:]
-            # (b, k+1, h, w, c), flipped back for geometrically correct MVS
+            # (b, k+1, h, w, c), flipped back for geometrically correct MVS;
+            # a view of channels_last features
             matching = matching.to(cdt).reshape(b, k + 1, mc, mh, mw
                                                 ).permute(0, 1, 3, 4, 2)
             if flip:
@@ -188,8 +220,10 @@ class DepthModel(nn.Module):
             volume_bhwd, = tracing.mark("cost_volume", [volume_bhwd])
 
         with tracing.span("sr.cv_encoder"):
-            # re-align the volume with the (possibly flipped) image features
-            volume = volume_bhwd.permute(0, 3, 1, 2).to(cdt)
+            # re-align the volume with the (possibly flipped) image
+            # features; its cast to the compute dtype lays it out too
+            volume = layout.relayout(volume_bhwd.permute(0, 3, 1, 2), fmt,
+                                     cdt)
             if flip:
                 volume = torch.flip(volume, dims=(-1,))
             with self._autocast(device):

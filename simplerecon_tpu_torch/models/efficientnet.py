@@ -17,6 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from simplerecon_tpu_torch.models.layers import BatchNorm2d
+from simplerecon_tpu_torch.ops import layout
 
 # (block_type, repeats, stride, expand, channels, se_ratio)
 V2_S_CONFIG = (
@@ -34,9 +35,16 @@ V2_S_STEM_CHANNELS = 24
 
 class Conv2dSame(nn.Conv2d):
     """Conv2d with TF "SAME" padding: total pad
-    max((ceil(i/s) - 1) * s + k - i, 0), the smaller half on top/left."""
+    max((ceil(i/s) - 1) * s + k - i, 0), the smaller half on top/left. A
+    depthwise one (groups = channels) runs on NCHW maps, as
+    `layers.DepthwiseConv2d` does."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.groups > 1 and self.groups == self.in_channels:
+            return layout.on_nchw(self._same, x)
+        return self._same(x)
+
+    def _same(self, x: torch.Tensor) -> torch.Tensor:
         ih, iw = x.shape[-2:]
         kh, kw = self.kernel_size
         sh, sw = self.stride

@@ -12,6 +12,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from simplerecon_tpu_torch.ops import layout
+
 
 def conv3x3(cin: int, cout: int, stride: int = 1, bias: bool = False
             ) -> nn.Conv2d:
@@ -21,6 +23,20 @@ def conv3x3(cin: int, cout: int, stride: int = 1, bias: bool = False
 def conv1x1(cin: int, cout: int, stride: int = 1, bias: bool = False
             ) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, 1, stride, bias=bias)
+
+
+class DepthwiseConv2d(nn.Conv2d):
+    """`nn.Conv2d` with one filter a channel (groups = channels), run on
+    NCHW maps (`layout.on_nchw`): PyTorch's NCHW depthwise kernels, where
+    cuDNN's channels_last ones are compiled at a process's first use."""
+
+    def __init__(self, channels: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0, bias: bool = False):
+        super().__init__(channels, channels, kernel_size, stride, padding,
+                         groups=channels, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layout.on_nchw(super().forward, x)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -75,15 +91,20 @@ class GroupNorm32(nn.GroupNorm):
     cast back to the input dtype, as flax's `nn.GroupNorm(dtype=...)`
     normalises in float32. It keeps no running statistics, so train and
     eval mode give the same output. State-dict names are
-    `nn.GroupNorm`'s: `weight` and `bias`."""
+    `nn.GroupNorm`'s: `weight` and `bias`. On the card F.group_norm
+    takes and gives NCHW maps: a channels_last map is laid out NCHW with
+    its cast to float32 and back with the cast back (`layout.relayout`,
+    counted where there is no cast)."""
 
     def __init__(self, num_channels: int, num_groups: int = 8,
                  eps: float = 1e-5):
         super().__init__(num_groups, num_channels, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x.float(), self.num_groups, self.weight,
-                            self.bias, self.eps).to(x.dtype)
+        out = F.group_norm(
+            layout.relayout(x, torch.contiguous_format, torch.float32),
+            self.num_groups, self.weight, self.bias, self.eps)
+        return layout.relayout(out, layout.format_of(x), x.dtype)
 
 
 class BasicBlock(nn.Module):

@@ -27,9 +27,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from simplerecon_tpu_torch.models.layers import (BatchNorm2d, GroupNorm32,
+from simplerecon_tpu_torch.models.layers import (BatchNorm2d,
+                                                DepthwiseConv2d, GroupNorm32,
                                                 InstanceNorm32)
-from simplerecon_tpu_torch.ops import pool
+from simplerecon_tpu_torch.ops import layout, pool
 from simplerecon_tpu_torch.ops.image import pad_edges
 
 
@@ -64,7 +65,8 @@ class StemPool(nn.Sequential):
     `matching_model.net.3.1.filt`). Both pool forms keep that layout, so
     a checkpoint loads into either. `impl="pallas"` runs the pair as one
     fused kernel pair (`ops/pool.py::MaxBlurPool`, K3), with the fixed
-    filter; "reference" and "fused" run the two modules."""
+    filter, on NCHW maps (`layout.on_nchw`); "reference" and "fused" run
+    the two modules in the map's layout."""
 
     def __init__(self, channels: int, impl: str):
         super().__init__(nn.MaxPool2d(kernel_size=2, stride=1),
@@ -73,7 +75,7 @@ class StemPool(nn.Sequential):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.impl == "pallas":
-            return pool.MaxBlurPool.apply(x)
+            return layout.on_nchw(pool.MaxBlurPool.apply, x)
         return super().forward(x)
 
 
@@ -143,8 +145,7 @@ class MnasDsConv(nn.Module):
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
-        self.conv_dw = nn.Conv2d(cin, cin, 3, padding=1, groups=cin,
-                                 bias=False)
+        self.conv_dw = DepthwiseConv2d(cin, 3, padding=1)
         self.bn1 = BatchNorm2d(cin, eps=1e-5)
         self.conv_pw = nn.Conv2d(cin, cout, 1, bias=False)
         self.bn2 = BatchNorm2d(cout, eps=1e-5)
@@ -166,8 +167,8 @@ class MnasIR(nn.Module):
         self.skip = stride == 1 and cin == cout
         self.conv_pw = nn.Conv2d(cin, mid, 1, bias=False)
         self.bn1 = BatchNorm2d(mid, eps=1e-5)
-        self.conv_dw = nn.Conv2d(mid, mid, kernel, stride=stride,
-                                 padding=kernel // 2, groups=mid, bias=False)
+        self.conv_dw = DepthwiseConv2d(mid, kernel, stride=stride,
+                                       padding=kernel // 2)
         self.bn2 = BatchNorm2d(mid, eps=1e-5)
         self.conv_pwl = nn.Conv2d(mid, cout, 1, bias=False)
         self.bn3 = BatchNorm2d(cout, eps=1e-5)
@@ -231,20 +232,28 @@ def upsample_nearest_to(x: torch.Tensor, size) -> torch.Tensor:
     0.5) * in / out), in float32 as XLA evaluates it, the factor folded
     to in * (1 / out) (neither torch's "nearest" nor its "nearest-exact"
     picks these pixels at every size). An exact 2x is a 2x2 pixel
-    repeat, whose backward is a fixed-order sum; other sizes gather."""
-    h, w = x.shape[-2:]
+    repeat, whose backward is a fixed-order sum; other sizes gather.
+    The result keeps x's layout: both run on x's (b, h, w, c) view when
+    x is channels_last."""
+    b, c, h, w = x.shape
+    cl = layout.format_of(x) == torch.channels_last
+    y = x.permute(0, 2, 3, 1) if cl else x      # dense in memory order
+    hd, wd = (1, 2) if cl else (2, 3)
     if tuple(size) == (2 * h, 2 * w):
-        b, c = x.shape[:2]
-        return x[:, :, :, None, :, None].expand(b, c, h, 2, w, 2
-                                                ).reshape(b, c, 2 * h, 2 * w)
-    for dim, (m, n) in ((2, (h, size[0])), (3, (w, size[1]))):
-        if m != n:
-            f32 = np.float32
-            factor = f32(m) * (f32(1) / f32(n))
-            src = np.floor((np.arange(n, dtype=f32) + f32(0.5)) * factor)
-            x = x.index_select(dim, torch.as_tensor(
-                src.astype(np.int64), device=x.device))
-    return x
+        shape = list(y.shape)
+        shape[hd], shape[wd] = 2 * h, 2 * w
+        y = y.unsqueeze(wd + 1).unsqueeze(hd + 1)
+        y = y.expand(*y.shape[:hd + 1], 2, y.shape[hd + 2], 2,
+                     *y.shape[wd + 3:]).reshape(shape)
+    else:
+        for dim, (m, n) in ((hd, (h, size[0])), (wd, (w, size[1]))):
+            if m != n:
+                f32 = np.float32
+                factor = f32(m) * (f32(1) / f32(n))
+                src = np.floor((np.arange(n, dtype=f32) + f32(0.5)) * factor)
+                y = y.index_select(dim, torch.as_tensor(
+                    src.astype(np.int64), device=x.device))
+    return y.permute(0, 3, 1, 2) if cl else y
 
 
 class FPNTopDown(nn.Module):

@@ -17,6 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from simplerecon_tpu_torch.ops import layout
+
 _SOBEL_X = np.array([[-1.0, 0.0, 1.0],
                      [-2.0, 0.0, 2.0],
                      [-1.0, 0.0, 1.0]], dtype=np.float32) / 8.0
@@ -50,16 +52,42 @@ def _unpad_dim(g: torch.Tensor, dim: int, n: int, before: int,
     return out
 
 
+def _pad_in_layout(x_bchw: torch.Tensor, pads, mode: str) -> torch.Tensor:
+    """`F.pad(x, pads, mode)` in x's layout. On the card F.pad gives a
+    channels_last map back NCHW, so such a map is copied into the middle
+    of a channels_last one, whose border rows, then columns, are copied
+    from the rows and columns they repeat."""
+    if layout.format_of(x_bchw) != torch.channels_last:
+        return F.pad(x_bchw, pads, mode=mode)
+    left, right, top, bottom = pads
+    b, c, h, w = x_bchw.shape
+    out = torch.empty((b, c, top + h + bottom, left + w + right),
+                      dtype=x_bchw.dtype, device=x_bchw.device,
+                      memory_format=torch.channels_last)
+    out[:, :, top:top + h, left:left + w] = x_bchw
+    for dim, n, before, after in ((2, h, top, bottom), (3, w, left, right)):
+        # border element j copies x[before - j] (reflect) or x[0], and
+        # after the map x[n - 2 - j] or x[n - 1]
+        for j in range(before):
+            src = before - j if mode == "reflect" else 0
+            out.narrow(dim, j, 1).copy_(out.narrow(dim, before + src, 1))
+        for j in range(after):
+            src = n - 2 - j if mode == "reflect" else n - 1
+            out.narrow(dim, before + n + j, 1).copy_(
+                out.narrow(dim, before + src, 1))
+    return out
+
+
 class _PadEdges(torch.autograd.Function):
-    """F.pad's forward, with a backward that sums in a fixed order: on the
-    card F.pad's backward adds the border's copies with atomics, in no
-    fixed order."""
+    """F.pad's forward (`_pad_in_layout`), with a backward that sums in a
+    fixed order: on the card F.pad's backward adds the border's copies
+    with atomics, in no fixed order."""
 
     @staticmethod
     def forward(ctx, x_bchw, pads, mode):
         ctx.pads, ctx.mode = pads, mode
         ctx.dtype, ctx.hw = x_bchw.dtype, x_bchw.shape[-2:]
-        return F.pad(x_bchw, pads, mode=mode)
+        return _pad_in_layout(x_bchw, pads, mode)
 
     @staticmethod
     def backward(ctx, g):
@@ -72,13 +100,14 @@ class _PadEdges(torch.autograd.Function):
 
 def pad_edges(x_bchw: torch.Tensor, pads, mode: str) -> torch.Tensor:
     """`F.pad(x, (left, right, top, bottom), mode)` for "reflect" and
-    "replicate", whose backward sums each element's copies in a fixed
-    order (`_PadEdges`); F.pad itself where no gradient is taken."""
+    "replicate", in x's layout, whose backward sums each element's copies
+    in a fixed order (`_PadEdges`); the pad alone where no gradient is
+    taken."""
     if mode not in ("reflect", "replicate"):
         raise ValueError(f"unknown pad mode {mode!r}")
     if torch.is_grad_enabled() and x_bchw.requires_grad:
         return _PadEdges.apply(x_bchw, tuple(pads), mode)
-    return F.pad(x_bchw, tuple(pads), mode=mode)
+    return _pad_in_layout(x_bchw, tuple(pads), mode)
 
 
 def _pad(x_bhwc: torch.Tensor, pad: int, mode: str) -> torch.Tensor:

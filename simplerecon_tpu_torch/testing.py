@@ -2,8 +2,8 @@
 arguments of the fused and dot-product sweeps, of K5 and K4 and of the
 stem pool, a
 posed frame stream, a training batch, the hero and dot-product models'
-options, and a weight perturbation that gives random-init outputs some
-spread.
+options, a weight perturbation that gives random-init outputs some
+spread, and a record of the convolutions' layouts.
 
 Used by `chip_smoke.py` and the tests; everything is drawn from numpy
 with a seed, so two devices see the same values.
@@ -16,6 +16,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from simplerecon_tpu_torch.ops import cost_volume as cv_ops
 from simplerecon_tpu_torch.ops import early_sweeps
@@ -260,6 +261,33 @@ def relative_errors(got, want) -> dict:
                       diff.norm().item() / max(ref.norm().item(), 1e-30),
                       diff.abs().max().item())
     return errs
+
+
+class ConvolutionLayouts(TorchDispatchMode):
+    """While on, records each convolution dispatched, forward
+    (`aten::convolution`: its input) and backward
+    (`aten::convolution_backward`: its gradient and input), in `seen` as
+    (op, depthwise, channels_last, nchw): whether it has a filter a
+    channel, and whether those maps are laid out channels_last and NCHW
+    (a map of one pixel is both). The autograd engine's threads see the
+    mode too."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func._schema.name
+        if name in ("aten::convolution", "aten::convolution_backward"):
+            backward = name == "aten::convolution_backward"
+            maps = args[:2] if backward else args[:1]
+            groups = args[9 if backward else 8]
+            self.seen.append((
+                name, groups > 1 and groups == maps[-1].shape[1],
+                all(t.is_contiguous(memory_format=torch.channels_last)
+                    for t in maps),
+                all(t.is_contiguous() for t in maps)))
+        return func(*args, **(kwargs or {}))
 
 
 def posed_stream(n: int, height: int, width: int, seed: int = 0,

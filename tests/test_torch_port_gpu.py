@@ -4,7 +4,8 @@ of the sweeps' gradient, the dot-product sweep (K1-dot) and its d_cur
 mode, the stem pool
 (K3 forward and backward) and the hero model's inference-only sweeps (K5
 over a warped stack, K4 the full-width fused warp); the eval and training
-programs on the card, and a full training checkpoint of card tensors
+programs on the card, the convolution stacks in channels_last with no
+cuDNN transpose, and a full training checkpoint of card tensors
 restored bit for bit. Marked `gpu`;
 skipped where there is no CUDA device. Run on the H100 with
 `python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py`.
@@ -585,12 +586,14 @@ def test_our_fuser_on_the_card_matches_the_cpu(cuda):
 
 def test_training_steps_repeat_their_bits(cuda):
     """Two hero b2 bf16 forward-and-backward passes from one state, as the
-    training step runs them: every gradient the same bits."""
+    training step runs them, in the card's channels_last layout: every
+    gradient the same bits."""
     from simplerecon_tpu_torch.models.depth_model import build_depth_model
     from simplerecon_tpu_torch.parallel import train
     from simplerecon_tpu_torch.testing import hero_options, train_batch
     opts = hero_options()
     model = build_depth_model(opts, device=cuda, seed=0).train()
+    assert model.memory_format == torch.channels_last
     batch = train.batch_to_device(train_batch(opts, 2, seed=7), cuda)
     grads = []
     for _ in range(2):
@@ -604,8 +607,70 @@ def test_training_steps_repeat_their_bits(cuda):
     assert not differ, differ
 
 
+# cuDNN's kernels that turn NCHW into NHWC and back around a convolution
+TRANSPOSES = ("nchwToNhwc", "nhwcToNchw")
+# the layout copies of a training step and of a request, besides the 4
+# and 2 of each depthwise convolution (`layout.on_nchw`): the dot model's
+# stem pool K3 takes NCHW maps (in and out, forward and backward)
+LAYOUT_COPIES = {"hero": (0, 0), "dot": (4, 2)}
+
+
+@pytest.mark.parametrize("name", ["hero", "dot"])
+def test_convolutions_run_channels_last(cuda, name):
+    """One small bf16 training step and one eval request on the card,
+    profiled: every convolution's activations channels_last, forward and
+    backward, but the depthwise ones' (NCHW), no cuDNN transpose kernel,
+    and the layout copies of `LAYOUT_COPIES`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from simplerecon_tpu_torch import tracing
+    from simplerecon_tpu_torch.models.depth_model import build_depth_model
+    from simplerecon_tpu_torch.parallel import train
+    from simplerecon_tpu_torch.scripts.test import make_forward_fn
+    from simplerecon_tpu_torch.testing import (ConvolutionLayouts,
+                                               dot_options, hero_options,
+                                               train_batch)
+    options = {"hero": hero_options, "dot": dot_options}[name]
+    opts = options(image_height=64, image_width=96,
+                   matching_num_depth_bins=8, model_num_views=4)
+    model = build_depth_model(opts, device=cuda, seed=0)
+    assert model.memory_format == torch.channels_last
+    optimizer = train.make_optimizer(opts, model)
+    batch = train.batch_to_device(train_batch(opts, 2, seed=1), cuda)
+    generator = torch.Generator().manual_seed(0)
+    forward = make_forward_fn(model)
+    train.train_step(model, optimizer, batch, generator)
+    forward(batch["cur"], batch["src"])
+    torch.cuda.synchronize()
+
+    def copies():
+        return tracing.counters().get("layout_copies", 0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, \
+            ConvolutionLayouts() as convs:
+        before = copies()
+        train.train_step(model, optimizer, batch, generator)
+        step = copies()
+        forward(batch["cur"], batch["src"])
+        torch.cuda.synchronize()
+    counted = (step - before, copies() - step)
+    kernels = {e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA}
+    assert len(kernels) > 50
+    assert not [k for k in kernels if any(t in k for t in TRANSPOSES)]
+    assert len(convs.seen) > 600
+    assert all(nchw if depthwise else cl
+               for _, depthwise, cl, nchw in convs.seen)
+    depthwise = sum(isinstance(m, torch.nn.Conv2d)
+                    and m.groups == m.in_channels > 1
+                    for m in model.modules())
+    step_copies, request_copies = LAYOUT_COPIES[name]
+    assert counted == (step_copies + 4 * depthwise,
+                       request_copies + 2 * depthwise)
+
+
 # the CUDA runtime's calls that make the host wait for the card
-BLOCKING_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+BLOCKING_CALLS =("cudaStreamSynchronize", "cudaDeviceSynchronize",
                   "cudaEventSynchronize", "cudaMemcpy")
 
 
