@@ -1,11 +1,13 @@
 """The benchmark's general part: it reads `BENCHMARK.json`, finds each
-name's file (a configuration at its `file`, a traffic mix at
-`benchmark/traffic/<mix>.json`, a cell's limits at
+name's file (a configuration at its `file`, and its plain reference at
+the file's `reference`, which `benchmark/reference/__init__.py` loads; a
+traffic mix at `benchmark/traffic/<mix>.json`, a cell's limits at
 `benchmark/limits/<cell>.json`, the loop of a mix's `kind` at
 `benchmark/loops/<kind>.py`, a per-layer metric `<family>.<variant>` at
 `benchmark/metrics/<family>.py`), runs the loop, and builds the result
 line. Nothing here names a cell, a configuration, a kind of traffic or a
-metric: later cells, mixes, loops and metrics come as files and entries.
+metric: later configurations with their references, cells, mixes, loops
+and metrics come as files and entries.
 """
 
 from __future__ import annotations

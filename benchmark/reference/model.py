@@ -522,16 +522,21 @@ class DotProductCostVolume(nn.Module):
 
 class DepthModel(nn.Module):
     """`feature_volume_type` "mlp_feature_volume" (hero) or
-    "simple_cost_volume" (dot product); matching scale 1."""
+    "simple_cost_volume" (dot product); matching scale 1. The matching
+    encoder is `matching_model`, by default the ResNet encoder: another
+    reference passes its own, which maps (n, 3, h, w) images to
+    (n, matching_feature_dims, h / 4, w / 4) features."""
 
     def __init__(self, feature_volume_type="mlp_feature_volume",
                  matching_num_depth_bins=64, min_matching_depth=0.25,
                  max_matching_depth=5.0, matching_feature_dims=16,
-                 model_num_views=8):
+                 model_num_views=8, matching_model=None):
         super().__init__()
         d = matching_num_depth_bins
         self.encoder = EfficientNetV2S()
-        self.matching_model = ResnetMatchingEncoder(matching_feature_dims)
+        self.matching_model = (
+            ResnetMatchingEncoder(matching_feature_dims)
+            if matching_model is None else matching_model)
         if feature_volume_type == "simple_cost_volume":
             self.cost_volume = DotProductCostVolume(d, min_matching_depth,
                                                     max_matching_depth)
@@ -608,3 +613,15 @@ class DepthModel(nn.Module):
         outputs["lowest_cost_bhw"] = lowest
         outputs["overall_mask_bhw"] = mask
         return outputs
+
+
+MODEL_KEYS = ("feature_volume_type", "matching_num_depth_bins",
+              "min_matching_depth", "max_matching_depth",
+              "matching_feature_dims", "model_num_views")
+
+
+def build(config: Dict, matching_model=None) -> DepthModel:
+    """The reference model of `config` (its own init), with
+    `matching_model` as its matching encoder where given."""
+    return DepthModel(**{k: config[k] for k in MODEL_KEYS},
+                      matching_model=matching_model)
